@@ -1,0 +1,419 @@
+"""Event-driven ADFL simulator (paper sections III, VI) on the fused engine.
+
+Time model:
+  h_t^{i,cmp} = max(h_i - time-since-last-activation, 0)      (Eq. 7)
+  H_t^i       = h^cmp + max over pulled in-links of h^com     (Eq. 8)
+  H_t         = max over activated workers of H_t^i           (Eq. 9)
+Bandwidth:
+  B_t^i = (#in-links + #out-links) * b                        (Eq. 10)
+Communication overhead metric = total model-transfer bytes.
+
+The host planner (``core.planner.HorizonPlanner``) resolves each round's
+control plane; pending rounds go to the device in bucket-uniform chunks
+(``dfl.worker.mega_round_step``), with the flat (N, P) model buffer resident
+on ``device`` and updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.core.aggregation import prefer_cols
+from repro_torch.core.planner import (HorizonPlanner, PlannedRound,
+                                      bucket_key, chunk_spans, mix_is_train)
+from repro_torch.core.protocol import Mechanism
+from repro_torch.core.scenarios import resolve_scenario
+from repro_torch.data.partition import dirichlet_partition
+from repro_torch.data.synthetic import (ClassificationData,
+                                        make_classification, train_test_split)
+from repro_torch.dfl import flat_state as FS
+from repro_torch.dfl import worker as WK
+from repro_torch.dfl.network import (EdgeNetwork, NetworkConfig,
+                                     heterogeneous_compute_times)
+from repro_torch.dfl.pipeline import DispatchPipeline
+from repro_torch.kernels.config import KernelConfig
+
+
+@dataclasses.dataclass
+class SimConfig:
+    """Simulation-plane configuration (the JAX package's ``SimConfig``, plus
+    ``device``).
+
+    ``scan_horizon``: the control plane is model-value-independent, so the
+    planner resolves up to this many rounds ahead on the host and the engine
+    runs them as one mega-round (``dfl.worker.mega_round_step``).  Horizons
+    are chopped at eval / history points and at the round cap, so histories
+    are identical at any horizon.
+
+    ``pipeline_depth``: at most this many chunks in flight on the card while
+    the host plans, packs and stages the next (``dfl.pipeline``); 0 is
+    lockstep.  Trajectories are identical at every depth.
+
+    ``device``: where the model plane runs — ``"cuda"`` (the default; the
+    run raises if there is no CUDA card) or ``"cpu"``, where the kernels'
+    plain PyTorch versions run.  The control plane always runs on the host.
+
+    Fields of the JAX package that this port does not run yet are kept and
+    validated, and a non-default value raises ``NotImplementedError`` naming
+    the ROADMAP item that ports it.
+    """
+    n_workers: int = 100
+    n_rounds: int = 300               # round cap
+    max_sim_time: Optional[float] = None   # stop at this simulated wall-clock;
+                                      #   evals then happen on a time grid
+    phi: float = 1.0                  # Dirichlet non-IID level (1.0 = IID)
+    tau_bound: int = 5
+    V: float = 10.0
+    batch_size: int = 32
+    local_steps: int = 2
+    lr: float = 0.05
+    hidden: int = 64
+    base_compute_s: float = 1.0
+    compute_sigma: float = 0.75       # lognormal spread of worker speeds
+    bandwidth_budget: float = 8.0     # transfers of size b per worker per round
+    link_timeout_s: float = 5.0       # async pull abort/retry ceiling
+    sync_link_timeout_s: float = 30.0 # sync barrier stall+retry ceiling
+    model_bytes_scale: float = 25.0   # time/bandwidth accounting prices a
+                                      #   paper-scale CNN (~0.7MB) rather than
+                                      #   the 27KB MLP proxy trained here
+    failure_prob: float = 0.0         # per-round chance a worker goes down
+    failure_persist: float = 0.5      # chance a down worker stays down
+    eval_every: int = 10
+    target_accuracy: Optional[float] = None
+    seed: int = 0
+    use_kernel: bool = False          # JAX package's deprecated kernel alias
+    kernels: Optional[KernelConfig] = None  # kernel tile sizes; None =
+                                      #   KernelConfig()
+    fused_engine: bool = True         # False = the legacy per-leaf path
+    scan_horizon: int = 8             # rounds per mega-round (see above)
+    pipeline_depth: int = 1           # chunks in flight (see above)
+    col_sparse_mix: bool = True       # contract Eq. 4 over the gathered
+                                      #   union of nonzero mixing COLUMNS —
+                                      #   (k, u) @ (u, P) — instead of the
+                                      #   row-sparse (k, N) @ (N, P) oracle
+    fused_local_sgd: bool = True      # the fused SGD kernel; off = the
+                                      #   autograd oracle (non-MLP specs fall
+                                      #   back to it automatically)
+    mesh_shards: int = 1              # row-partition the buffer over devices
+    min_bucket: int = 8               # smallest power-of-two shape bucket;
+                                      #   any value yields identical
+                                      #   trajectories
+    n_samples: int = 20000
+    dim: int = 32
+    scenario: Optional[object] = None # None, a preset name ("churn20",
+                                      #   "blackout", "straggler_tail",
+                                      #   "mobile"), or a ScenarioSchedule
+    checkpoint_every: int = 0         # rounds between snapshots; 0 = off
+    checkpoint_dir: Optional[str] = None
+    checkpoint_keep: int = 3
+    device: str = "cuda"              # where the model plane runs
+
+    def __post_init__(self):
+        for f in ("failure_prob", "failure_persist"):
+            v = getattr(self, f)
+            if not (0.0 <= v <= 1.0):
+                raise ValueError(
+                    f"SimConfig.{f} must be a probability in [0, 1], got "
+                    f"{v} — out-of-range values silently degenerate the "
+                    f"edge-dynamics mask to 'never' or 'always'")
+        for f in ("link_timeout_s", "sync_link_timeout_s", "base_compute_s",
+                  "lr", "model_bytes_scale", "bandwidth_budget"):
+            v = getattr(self, f)
+            if v <= 0:
+                raise ValueError(f"SimConfig.{f} must be > 0, got {v} — a "
+                                 f"non-positive value makes Eq. 7-9 round "
+                                 f"durations meaningless")
+        for f in ("n_workers", "n_rounds", "batch_size", "local_steps",
+                  "eval_every", "scan_horizon", "mesh_shards", "min_bucket"):
+            v = getattr(self, f)
+            if v < 1:
+                raise ValueError(f"SimConfig.{f} must be >= 1, got {v}")
+        if self.pipeline_depth < 0:
+            raise ValueError(f"SimConfig.pipeline_depth must be >= 0 "
+                             f"(0 = lockstep oracle), got "
+                             f"{self.pipeline_depth}")
+        if self.checkpoint_every < 0:
+            raise ValueError(f"SimConfig.checkpoint_every must be >= 0 "
+                             f"(0 disables snapshots), got "
+                             f"{self.checkpoint_every}")
+        if self.checkpoint_every > 0 and not self.checkpoint_dir:
+            raise ValueError(
+                "SimConfig.checkpoint_every > 0 needs checkpoint_dir: pass "
+                "the directory snapshots should land in")
+        if self.kernels is not None and not isinstance(self.kernels,
+                                                       KernelConfig):
+            raise ValueError(
+                f"SimConfig.kernels must be a kernels.config.KernelConfig "
+                f"(or None for the default tiles), got "
+                f"{type(self.kernels).__name__}")
+        if self.kernels is None:
+            self.kernels = KernelConfig()
+        if str(self.device).split(":")[0] not in ("cpu", "cuda"):
+            raise ValueError(f"SimConfig.device must be 'cuda' (the card) or "
+                             f"'cpu', got {self.device!r}")
+        for off, what, item in (
+                (not self.fused_engine, "fused_engine=False (the legacy "
+                 "per-leaf path)", 4),
+                (self.mesh_shards > 1, "mesh_shards > 1 (the mesh slice)", 5),
+                (self.checkpoint_every > 0, "checkpoint_every > 0 "
+                 "(snapshots)", 3),
+                (self.use_kernel, "use_kernel (the JAX package's kernel "
+                 "alias; here the tensor's device picks the kernel)", 6)):
+            if off:
+                raise NotImplementedError(
+                    f"SimConfig: {what} is not ported to PyTorch yet — "
+                    f"ROADMAP Queue A item {item}")
+
+
+@dataclasses.dataclass
+class History:
+    """Per-eval-point trajectory of one simulation run.
+
+    Units: ``sim_time`` is simulated edge wall-clock SECONDS (sum of Eq. 9
+    round durations — the paper's x-axis); ``comm_gb`` cumulative transfer
+    volume in GB (Eq. 10 accounting at ``model_bytes_scale`` pricing);
+    ``staleness_avg``/``staleness_max`` are in ROUNDS since last activation
+    (Eq. 6).  The ``*_wall_s`` fields are REAL host seconds: ``plan_wall_s``
+    in ``planner.plan_round``, ``pack_wall_s`` chunk splitting, packing and
+    batch drawing, ``stage_wall_s`` host-to-device staging and the batch
+    gather launch, ``drain_wall_s`` the host blocked on the device.
+    """
+    rounds: List[int] = dataclasses.field(default_factory=list)
+    sim_time: List[float] = dataclasses.field(default_factory=list)
+    comm_gb: List[float] = dataclasses.field(default_factory=list)
+    acc_global: List[float] = dataclasses.field(default_factory=list)
+    acc_local: List[float] = dataclasses.field(default_factory=list)
+    loss_global: List[float] = dataclasses.field(default_factory=list)
+    staleness_avg: List[float] = dataclasses.field(default_factory=list)
+    staleness_max: List[int] = dataclasses.field(default_factory=list)
+    completion_time: Optional[float] = None     # first time target acc reached
+    completion_comm_gb: Optional[float] = None
+    wall_s: float = 0.0
+    eval_wall_s: float = 0.0      # host wall spent in eval passes
+    setup_wall_s: float = 0.0     # one-time setup before the round loop
+    round_durations: List[float] = dataclasses.field(default_factory=list)
+    round_active: List[int] = dataclasses.field(default_factory=list)
+    plan_wall_s: float = 0.0
+    pack_wall_s: float = 0.0
+    stage_wall_s: float = 0.0
+    drain_wall_s: float = 0.0
+
+    def to_dict(self) -> dict:
+        return dataclasses.asdict(self)
+
+
+def _resolve_device(device: str) -> torch.device:
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"run_simulation: device {device!r} asked for, but PyTorch sees "
+            f"no CUDA card; pass device='cpu' to run the plain versions on "
+            f"the CPU")
+    return dev
+
+
+def run_simulation(mechanism: Mechanism, cfg: SimConfig,
+                   data: Optional[ClassificationData] = None,
+                   test: Optional[ClassificationData] = None,
+                   record_history_for_bound: bool = False, *,
+                   device: Optional[str] = None,
+                   init: Optional[Dict[str, np.ndarray]] = None,
+                   resume_from: Optional[str] = None) -> History:
+    """Run one simulation-plane federation.
+
+    ``device`` overrides ``cfg.device`` ("cuda" unless the caller asks for
+    "cpu").  ``init`` replaces the port's own initialisation with stacked
+    parameters of the JAX package (numpy arrays with a leading worker axis,
+    ``flat_state.from_reference``); the control plane does not depend on
+    the init.
+    """
+    if resume_from is not None:
+        raise NotImplementedError("run_simulation: resume_from (snapshots) "
+                                  "is not ported to PyTorch yet — ROADMAP "
+                                  "Queue A item 3")
+    dev = _resolve_device(device if device is not None else cfg.device)
+    rng = np.random.default_rng(cfg.seed)
+    t_wall = time.time()
+
+    # --- data ---
+    if data is None:
+        full = make_classification(cfg.n_samples, cfg.dim, seed=cfg.seed)
+        data, test_split = train_test_split(full, 0.2, seed=cfg.seed)
+        test = test or test_split
+    if test is None:
+        raise ValueError("run_simulation: pass `test` when supplying `data`")
+    parts, class_counts = dirichlet_partition(data, cfg.n_workers, cfg.phi,
+                                              seed=cfg.seed)
+    data_sizes = np.array([len(p) for p in parts], np.float64)
+    alpha = torch.tensor(data_sizes / data_sizes.sum(), dtype=torch.float32,
+                         device=dev)
+
+    # --- environment ---
+    net = EdgeNetwork(NetworkConfig(n_workers=cfg.n_workers), rng)
+    in_range = net.in_range()
+    h_i = heterogeneous_compute_times(cfg.n_workers, cfg.base_compute_s, rng,
+                                      sigma=cfg.compute_sigma)
+
+    # --- models: the flat buffer is the only model storage ---
+    if init is None:
+        stacked = WK.init_stacked(torch.Generator().manual_seed(cfg.seed),
+                                  cfg.n_workers, cfg.dim, cfg.hidden,
+                                  data.n_classes)
+        buf, flat_spec = FS.flatten_stacked(stacked)
+        buf = buf.to(dev)
+    else:
+        buf, flat_spec = FS.from_reference(init, dev)
+        want = FS.spec_of(WK.init_stacked(torch.Generator(), 1, cfg.dim,
+                                          cfg.hidden, data.n_classes))
+        if buf.shape[0] != cfg.n_workers or flat_spec.shapes != want.shapes:
+            raise ValueError(
+                f"run_simulation: init has {buf.shape[0]} workers of leaf "
+                f"shapes {flat_spec.shapes}; the config needs "
+                f"{cfg.n_workers} of {want.shapes}")
+    model_bytes = WK.param_bytes(FS.unravel_row(buf[0], flat_spec)) \
+        * cfg.model_bytes_scale
+    exp_link_time = net.expected_link_time(model_bytes)
+    data_x = torch.from_numpy(data.x).to(dev)      # device-resident dataset
+    data_y = torch.from_numpy(data.y).to(dev)
+
+    # --- control plane: the horizon planner owns all mutable control state
+    scen = resolve_scenario(cfg.scenario, cfg.n_workers, cfg.n_rounds,
+                            dist=net.dist, comm_range_m=net.cfg.comm_range_m)
+    planner = HorizonPlanner(
+        mechanism, h_i=h_i, in_range=in_range, exp_link_time=exp_link_time,
+        model_bytes=model_bytes, class_counts=class_counts,
+        data_sizes=data_sizes, net=net, rng=rng, tau_bound=cfg.tau_bound,
+        bandwidth_budget=cfg.bandwidth_budget,
+        link_timeout_s=cfg.link_timeout_s,
+        sync_link_timeout_s=cfg.sync_link_timeout_s,
+        failure_prob=cfg.failure_prob, failure_persist=cfg.failure_persist,
+        scenario=scen)
+    x_test = torch.from_numpy(test.x).to(dev)
+    y_test = torch.from_numpy(test.y).to(dev)
+
+    hist = History()
+    bound_log = {"active": [], "W": []} if record_history_for_bound else None
+    horizon = cfg.scan_horizon
+    fused_sgd = cfg.fused_local_sgd and WK.fused_sgd_supported(flat_spec)
+    pipe = DispatchPipeline(cfg.pipeline_depth)
+    on_card = dev.type == "cuda"
+
+    def stage(a: np.ndarray) -> torch.Tensor:
+        """Host array -> device, without waiting for queued launches."""
+        t = torch.from_numpy(a)
+        return t.pin_memory().to(dev, non_blocking=True) if on_card else t
+
+    def flush(plans: List[PlannedRound]) -> None:
+        """Send the pending planned rounds to the model plane (Eq. 4+5):
+        consecutive rounds sharing one shape-bucket key go out as one
+        mega-round, packed with the uniform-bucket packer."""
+        t0 = time.perf_counter()
+        spans = list(chunk_spans(plans, cfg.n_workers,
+                                 col_sparse=cfg.col_sparse_mix,
+                                 min_bucket=cfg.min_bucket))
+        hist.pack_wall_s += time.perf_counter() - t0
+        for lo, hi, key in spans:
+            chunk = plans[lo:hi]
+            # the per-chunk traffic model picks the cheaper contraction
+            col = cfg.col_sparse_mix and prefer_cols(key[0], key[2],
+                                                     cfg.n_workers)
+            t0 = time.perf_counter()
+            w_h, ctrl_h, ts = WK.pack_chunk(chunk, key,
+                                            min_bucket=cfg.min_bucket,
+                                            col_sparse=col)
+            k_mix = w_h.shape[1]
+            u = w_h.shape[2] if col and k_mix else 0
+            k_train = (ctrl_h.shape[1] - k_mix - u) // 2
+            ids = (WK.sample_batch_ids(
+                cfg.seed, ts, ctrl_h[:, k_mix + u:k_mix + u + k_train],
+                parts, cfg.local_steps, cfg.batch_size) if k_train else None)
+            mit = fused_sgd and all(mix_is_train(p) for p in chunk)
+            t1 = time.perf_counter()
+            hist.pack_wall_s += t1 - t0
+            w_d, c_d = stage(w_h), stage(ctrl_h)
+            xb = yb = None
+            if ids is not None:
+                ids_d = stage(ids)
+                xb, yb = data_x[ids_d], data_y[ids_d]
+            hist.stage_wall_s += time.perf_counter() - t1
+            WK.mega_round_step(buf, w_d, c_d, xb, yb, spec=flat_spec,
+                               lr=cfg.lr, kernels=cfg.kernels, col_sparse=col,
+                               fused_sgd=fused_sgd, with_losses=False,
+                               mix_is_train=mit)
+            token = None
+            if on_card:
+                token = torch.cuda.Event()
+                token.record()
+            pipe.submit(token)
+
+    hist.setup_wall_s = time.time() - t_wall
+    pending: list[PlannedRound] = []
+    stop = False
+    while planner.t < cfg.n_rounds and not stop:
+        t0p = time.perf_counter()
+        p = planner.plan_round()
+        # resolve the round's shape-bucket key at plan time (memoized on
+        # the plan): chunk_spans then only does lookups
+        bucket_key(p, cfg.n_workers, col_sparse=cfg.col_sparse_mix,
+                   min_bucket=cfg.min_bucket)
+        hist.plan_wall_s += time.perf_counter() - t0p
+        t = p.t
+        sim_clock = planner.sim_clock
+        hist.round_durations.append(p.duration)
+        hist.round_active.append(int(p.active.sum()))
+        if bound_log is not None:
+            bound_log["active"].append(p.active.copy())
+            bound_log["W"].append(p.W.copy())
+        pending.append(p)
+
+        # eval/history points are horizon boundaries, so histories are
+        # identical at any scan_horizon
+        if cfg.max_sim_time is not None:
+            grid = cfg.max_sim_time / 12.0
+            crossed = (int(sim_clock / grid)
+                       > int((sim_clock - p.duration) / grid))
+            do_eval = (crossed or sim_clock >= cfg.max_sim_time
+                       or t == cfg.n_rounds)
+            stop = sim_clock >= cfg.max_sim_time
+        else:
+            do_eval = t % cfg.eval_every == 0 or t == cfg.n_rounds
+        # scenario event boundaries also flush, keeping mega-rounds from
+        # straddling a fault-phase change
+        at_boundary = scen is not None and (t + 1) in scen.boundaries
+        if (do_eval or stop or t == cfg.n_rounds or at_boundary
+                or len(pending) >= horizon):
+            flush(pending)
+            pending = []
+            if do_eval or stop or at_boundary or t == cfg.n_rounds:
+                pipe.drain()
+        if do_eval:
+            t_eval = time.time()
+            accg, lossg = WK.evaluate_global_flat(buf, alpha, x_test, y_test,
+                                                  spec=flat_spec)
+            accl, _ = WK.evaluate_stacked_flat(buf, x_test, y_test,
+                                               spec=flat_spec)
+            hist.rounds.append(t)
+            hist.sim_time.append(sim_clock)
+            hist.comm_gb.append(planner.comm_bytes / 1e9)
+            hist.acc_global.append(float(accg))
+            hist.acc_local.append(float(accl))
+            hist.loss_global.append(float(lossg))
+            hist.staleness_avg.append(float(planner.st.tau.mean()))
+            hist.staleness_max.append(int(planner.st.tau.max()))
+            if (cfg.target_accuracy is not None
+                    and hist.completion_time is None
+                    and float(accg) >= cfg.target_accuracy):
+                hist.completion_time = sim_clock
+                hist.completion_comm_gb = planner.comm_bytes / 1e9
+            hist.eval_wall_s += time.time() - t_eval
+
+    pipe.drain()
+    hist.drain_wall_s += pipe.drain_wall_s
+    hist.wall_s = time.time() - t_wall
+    if bound_log is not None:
+        hist.bound_log = bound_log  # type: ignore[attr-defined]
+    return hist

@@ -1,0 +1,91 @@
+"""The PyTorch port stands alone: it imports with jax absent, never imports
+jax or the JAX package, and runs on the card unless asked for the CPU."""
+import ast
+import os
+import pathlib
+import subprocess
+import sys
+
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+
+def _port_modules():
+    mods = []
+    for path in sorted(PORT.rglob("*.py")):
+        parts = ("repro_torch",) + path.relative_to(PORT).with_suffix("").parts
+        mods.append(".".join(parts[:-1] if parts[-1] == "__init__" else parts))
+    return mods
+
+
+def test_port_imports_with_jax_absent():
+    mods = _port_modules()
+    code = ("import sys; sys.modules['jax'] = None; "
+            "sys.modules['repro'] = None\n"
+            + "".join(f"import {m}\n" for m in mods))
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    res = subprocess.run([sys.executable, "-c", code], env=env,
+                         capture_output=True, text=True, timeout=240)
+    assert res.returncode == 0, res.stderr
+    assert len(mods) >= 15
+
+
+@pytest.mark.parametrize("path", sorted(
+    [p for p in PORT.rglob("*.py")] + [ROOT / "chip_smoke.py"]),
+    ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_reference_imports(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            top = name.split(".")[0]
+            assert top not in ("jax", "jaxlib", "repro", "flax"), \
+                f"{path.name}:{node.lineno} imports {name}"
+
+
+def test_run_simulation_defaults_to_the_card():
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl.simulator import SimConfig, run_simulation
+    cfg = SimConfig(n_workers=4, n_rounds=2, n_samples=400, hidden=8)
+    assert cfg.device == "cuda"
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present: the default device works here")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        run_simulation(DySTop(), cfg)
+    h = run_simulation(DySTop(), cfg, device="cpu")
+    assert h.rounds == [2]
+
+
+@pytest.mark.parametrize("kw, item", [
+    (dict(fused_engine=False), 4), (dict(mesh_shards=2), 5),
+    (dict(checkpoint_every=5, checkpoint_dir="snap"), 3),
+    (dict(use_kernel=True), 6)])
+def test_unported_paths_name_their_roadmap_item(kw, item):
+    from repro_torch.dfl.simulator import SimConfig
+    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
+        SimConfig(**kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(failure_prob=1.5), dict(lr=0.0), dict(n_workers=0),
+    dict(pipeline_depth=-1), dict(checkpoint_every=-1),
+    dict(checkpoint_every=3), dict(kernels="pallas"), dict(device="tpu")])
+def test_simconfig_rejects_out_of_range(kw):
+    from repro_torch.dfl.simulator import SimConfig
+    with pytest.raises(ValueError):
+        SimConfig(**kw)
+
+
+@pytest.mark.parametrize("p_blk", [0, 48, 2048, True])
+def test_kernel_config_checks_the_warp_multiple(p_blk):
+    from repro_torch.kernels.config import KernelConfig
+    with pytest.raises(ValueError, match="multiple of 32"):
+        KernelConfig(agg_p_blk=p_blk)
