@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of the DySTop simulation plane on one card.
+"""Drive the PyTorch/CUDA port of DySTop on one card: the simulation plane
+and the LM fleet.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -27,13 +28,45 @@ Phases (any failure raises, and the script exits nonzero with no result):
    control plane must match exactly and the accuracy curve within 1e-3
    (both runs draw identical batches);
 6. run the main path once more under ``torch.profiler`` and report the
-   card's kernel time and its share of phase 3's wall time.
+   card's kernel time and its share of phase 3's wall time;
+7. hold the flash-attention kernel against its plain version on the card,
+   in bf16 and f32: the LM path's shape (4, 9, 256, 64) causal with 3 kv
+   heads, a ragged S = 200, window 64, softcap 50, (1, 8, 1024, 128), and
+   window 0 (every row fully masked, the first rows included) beside a
+   non-causal window of -32 (the last 33 rows fully masked) — f32 to 1e-5
+   absolute, bf16 to 2 bf16 ulps of the larger magnitude after 1e-6 of f32
+   sum-order noise;
+8. zero the launch counters, run the LM fleet's main path at full width —
+   ``run_lm_federation(DySTop(V=3.0, t_thre=10, max_neighbors=3),
+   smollm_135m.get_config(), LMRunConfig(n_workers=8, n_rounds=30,
+   batch=4, seq=256, optimizer="adam", lr=1e-3, eval_every=5))``, all 30
+   layers, as ``examples/dfl_lm.py`` runs it except ``seq=256`` for its 64,
+   so each row's attention spans four of the kernel's 64-row kv tiles — read
+   the counters (flash_attention and aggregate must have launched), check
+   the evals are finite, and profile a 10-round copy: the card's kernel
+   time over that copy's own round-loop wall (its ``wall_s`` less its
+   ``setup_wall_s``) is the busy share;
+9. at the LM path's commonest shapes, hold each kernel against its plain
+   version once more and time it: flash on the model's strided q/k/v views
+   (2 bf16 ulps) beside its plain version,
+   ``scaled_dot_product_attention(is_causal=True)`` and its bound (bytes
+   over 3.35 TB/s against flops over the peak for the inputs' type, 989
+   TFLOP/s bf16 or 67 TFLOP/s f32); aggregate over the fleet's real (8, P)
+   buffer (f32 atol and rtol 1e-5) beside its plain version, ``matmul``
+   and its bound;
+10. run the smoke geometry of smollm-135m for 9 rounds with 4 workers (two
+   rounds train 3 and 4 rows) on the card and on the CPU: the control plane
+   must match exactly and ``loss_global`` within 2e-2 (bf16 activations
+   round in other kernels on the two devices, and Adam steps the rounded
+   parameters).
 
-Prints a ``{"kernels": [...]}`` line, a ``{"sim": {...}}`` line and, as the
-last line, ``{"ok": true, "device": {...}}``.
+Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
+``{"kernels": [...]}`` and ``{"sim": {...}}`` lines, the card's name and
+power limit and, as the last line, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import pathlib
 import statistics
@@ -44,7 +77,9 @@ from collections import Counter
 
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
+BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 N_WORKERS, REPS = 100, 60
+LM_CARD_CPU_TOL = 2e-2             # loss_global, card vs CPU, bf16 smoke run
 
 
 def check(ok, msg: str) -> None:
@@ -95,7 +130,8 @@ def call_ms(fn, reps: int = REPS) -> float:
 def device_profile(fn):
     """Device kernel time of ``fn`` from a ``torch.profiler`` trace: total
     seconds and the five kernels that took most, or (None, []) when the
-    trace holds no device time."""
+    trace holds no device time; and the trace's device kernel count with
+    the eight host ops that took most host time of their own."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -111,16 +147,22 @@ def device_profile(fn):
                 us = e.self_cuda_time_total
             rows.append((us, e.key, e.count))
     total = sum(us for us, _, _ in rows)
+    host = sorted(((e.self_cpu_time_total, e.key, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), reverse=True)
+    extra = {"device_kernels": sum(c for _, _, c in rows),
+             "host_top_ops": [{"op": k[:60], "self_s": us * 1e-6, "count": c}
+                              for us, k, c in host[:8]]}
     if total <= 0:
-        return None, []
+        return None, [], extra
     rows.sort(reverse=True)
     return total * 1e-6, [{"kernel": k[:80], "s": us * 1e-6, "count": c}
-                          for us, k, c in rows[:5]]
+                          for us, k, c in rows[:5]], extra
 
 
-def bound(nbytes: float, flops: float):
+def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -177,6 +219,58 @@ def sgd_cost(spec, active, k, steps, batch, with_losses):
     return bound(nbytes, flops)
 
 
+def flash_mask(s: int, causal: bool, window):
+    import torch
+    rows = torch.arange(s)[:, None]
+    cols = torch.arange(s)[None, :]
+    mask = torch.ones((s, s), dtype=torch.bool)
+    if causal:
+        mask &= cols <= rows
+    if window is not None:
+        mask &= (rows - cols) < window
+    return mask
+
+
+def flash_cost(q, k, causal, window):
+    """Bytes: q, k, v (as passed, kv heads once) read and o written once.
+    Flops: 4 D per unmasked (row, column) pair, over the peak for the
+    inputs' type."""
+    import torch
+    b, h, s, d = q.shape
+    pairs = int(flash_mask(s, causal, window).sum())
+    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
+    rate = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
+    return bound(nbytes, 4.0 * d * pairs * b * h, rate)
+
+
+def bf16_ulps(got, want, f32_atol: float = 1e-6) -> float:
+    """Largest distance in bf16 ulps of the larger magnitude, after
+    ``f32_atol`` of f32 sum-order noise (which near 0 is itself several bf16
+    ulps of the tiny value)."""
+    import torch
+    got, want = got.double(), want.double()
+    mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+    return float(((got - want).abs() - f32_atol).clamp_min(0).div(ulp).max())
+
+
+def recorder(counter, agg, fa=None):
+    """Wrappers around the kernels' entry points that count each call's
+    shape (the kernels' own launch counters stay the only proof of
+    launches)."""
+    def rec_agg(W, X, col_ids=None, **kw):
+        counter[("aggregate", W.shape[0], W.shape[1],
+                 col_ids is not None)] += 1
+        return agg(W, X, col_ids, **kw)
+
+    def rec_fa(q, k, v, causal=True, window=None, softcap=None):
+        counter[("flash_attention", tuple(q.shape), k.shape[1], q.dtype,
+                 causal, window, softcap)] += 1
+        return fa(q, k, v, causal, window, softcap)
+
+    return rec_agg, rec_fa
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -189,7 +283,10 @@ def main() -> int:
     from repro_torch.dfl import worker as WK
     from repro_torch.dfl.simulator import SimConfig, run_simulation
     from repro_torch.kernels import _build
+    from repro_torch.configs import smollm_135m
+    from repro_torch.dfl import lm_worker as LW
     from repro_torch.kernels import aggregate as AGG
+    from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_sgd as FSGD
 
     torch.backends.cuda.matmul.allow_tf32 = False   # IEEE f32 everywhere
@@ -255,10 +352,8 @@ def main() -> int:
     # ---- 3. the main path, through the kernels -----------------------------
     shapes: Counter = Counter()
     orig_agg, orig_sgd = AGG.aggregate, FSGD.fused_sgd
-
-    def rec_agg(W, X, col_ids=None, **kw):
-        shapes[("aggregate", W.shape[0], W.shape[1], col_ids is not None)] += 1
-        return orig_agg(W, X, col_ids, **kw)
+    orig_fa = FA.flash_attention
+    rec_agg, _ = recorder(shapes, orig_agg)
 
     def rec_sgd(buf, xb, yb, active, spec, lr, with_losses=True):
         shapes[("fused_sgd", buf.shape[0], bool(with_losses))] += 1
@@ -338,10 +433,175 @@ def main() -> int:
           f"max |acc gap| {acc_gap:.2e}", flush=True)
 
     # ---- 6. how busy the card is on the main path --------------------------
-    busy_s, busy_top = device_profile(
+    busy_s, busy_top, _ = device_profile(
         lambda: run_simulation(DySTop(V=10.0, t_thre=20), cfg))
     print(f"main path under the profiler: device kernels "
           f"{busy_s if busy_s is None else round(busy_s, 4)} s", flush=True)
+
+    # ---- 7. the flash kernel against its plain version --------------------
+    flash_err = flash_ulps = 0.0
+    fa_cases = [("path", (4, 9, 256, 64), 3, True, None, None),
+                ("ragged S=200", (4, 9, 200, 64), 3, True, None, None),
+                ("window 64", (4, 9, 256, 64), 3, True, 64, None),
+                ("softcap 50", (4, 9, 256, 64), 3, True, None, 50.0),
+                ("(1, 8, 1024, 128)", (1, 8, 1024, 128), 8, True, None, None),
+                ("window 0: all rows masked", (2, 4, 96, 64), 2, True, 0,
+                 None),
+                ("non-causal window -32: last rows masked", (2, 4, 160, 64),
+                 2, False, -32, None)]
+    for label, (b, h, s, d), hk, causal, window, softcap in fa_cases:
+        for dtype in (torch.bfloat16, torch.float32):
+            q = torch.randn((b, s, h, d), generator=gen).to(dev, dtype)
+            q = q.transpose(1, 2)          # the model's layout, as a view
+            k = torch.randn((b, hk, s, d), generator=gen).to(dev, dtype)
+            v = torch.randn((b, hk, s, d), generator=gen).to(dev, dtype)
+            got = FA.flash_attention(q, k, v, causal, window, softcap)
+            want = FA.flash_attention_plain(q, k, v, causal, window, softcap)
+            torch.cuda.synchronize()
+            check(torch.isfinite(got).all(), f"flash {label}: non-finite")
+            err = float((got.float() - want.float()).abs().max())
+            flash_err = max(flash_err, err)
+            if dtype == torch.float32:
+                check(err <= 1e-5, f"flash {label} f32: |err| {err}")
+                print(f"flash {label} f32: max |err| {err:.3e}")
+            else:
+                ulps = bf16_ulps(got.float(), want.float())
+                flash_ulps = max(flash_ulps, ulps)
+                check(ulps <= 2.0, f"flash {label} bf16: {ulps} ulps")
+                print(f"flash {label} bf16: max |err| {err:.3e}, "
+                      f"{ulps:.2f} bf16 ulps")
+            if window is not None and window <= 0:
+                rows = ~flash_mask(s, causal, window).any(1)
+                check(bool((got[:, :, rows.to(dev)] == 0).all()),
+                      f"flash {label}: a fully masked row is not 0")
+    sys.stdout.flush()
+
+    # ---- 8. the LM fleet's main path at full width, through the kernels ----
+    lm_cfg = smollm_135m.get_config()
+    lm_run = LW.LMRunConfig(n_workers=8, n_rounds=30, batch=4, seq=256,
+                            optimizer="adam", lr=1e-3, eval_every=5)
+
+    def lm_mech():
+        return DySTop(V=3.0, t_thre=10, max_neighbors=3)
+
+    lm_shapes: Counter = Counter()
+    AGG.aggregate, FA.flash_attention = recorder(lm_shapes, orig_agg, orig_fa)
+    AGG.launches = 0
+    FA.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        fleet, lm_hist = LW.run_lm_federation(lm_mech(), lm_cfg, lm_run)
+    finally:
+        AGG.aggregate, FA.flash_attention = orig_agg, orig_fa
+    torch.cuda.synchronize()
+    lm_wall = time.perf_counter() - t0
+    lm_launches = {"flash_attention": FA.launches, "aggregate": AGG.launches}
+    check(lm_launches["flash_attention"] > 0 and lm_launches["aggregate"] > 0,
+          f"a kernel of the LM path never launched: {lm_launches}")
+    lm_peak = torch.cuda.max_memory_allocated()
+    lossg = np.asarray(lm_hist.loss_global)
+    check(lossg.shape == (6,) and np.isfinite(lossg).all()
+          and np.isfinite(lm_hist.round_loss).all(),
+          f"LM evals not finite: {lossg.tolist()}")
+    check(bool(torch.isfinite(fleet.pbuf).all()), "LM params not finite")
+    print(f"LM path: {lm_hist.rounds[-1]} rounds in {lm_wall:.2f} s, "
+          f"launches {lm_launches}, loss_global {lossg[0]:.4f} -> "
+          f"{lossg[-1]:.4f}", flush=True)
+    lm_short = dataclasses.replace(lm_run, n_rounds=10)
+    prof_hist = []
+    lm_busy_s, lm_busy_top, lm_profile = device_profile(
+        lambda: prof_hist.append(
+            LW.run_lm_federation(lm_mech(), lm_cfg, lm_short)[1]))
+    # the round loop's own wall in the profiled run (setup left out)
+    lm_loop_wall = prof_hist[0].wall_s - prof_hist[0].setup_wall_s
+
+    # ---- 9. times at the LM path's shapes ----------------------------------
+    fa_key, fa_count = max(((s, c) for s, c in lm_shapes.items()
+                            if s[0] == "flash_attention"),
+                           key=lambda sc: sc[1])
+    _, (b, h, s, d), hk, fdt, causal, window, softcap = fa_key
+    q = torch.randn((b, s, h, d), generator=gen).to(dev, fdt).transpose(1, 2)
+    k = torch.randn((b, s, hk, d), generator=gen).to(dev, fdt).transpose(1, 2)
+    v = torch.randn((b, s, hk, d), generator=gen).to(dev, fdt).transpose(1, 2)
+    got = FA.flash_attention(q, k, v, causal, window, softcap)
+    want = FA.flash_attention_plain(q, k, v, causal, window, softcap)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ulps = (bf16_ulps(got.float(), want.float()) if fdt == torch.bfloat16
+            else 0.0)
+    check(torch.isfinite(got).all() and ulps <= 2.0
+          and (fdt == torch.bfloat16 or err <= 1e-5),
+          f"flash at the LM path's strided views: |err| {err}, {ulps} ulps")
+    flash_err, flash_ulps = max(flash_err, err), max(flash_ulps, ulps)
+    print(f"flash at the LM path's strided q/k/v views: max |err| "
+          f"{err:.3e}, {ulps:.2f} bf16 ulps", flush=True)
+    k_rep = k.repeat_interleave(h // hk, dim=1)
+    v_rep = v.repeat_interleave(h // hk, dim=1)
+    fb_ms, fb_by = flash_cost(q, k, causal, window)
+    flash_row = {
+        "shape": [b, h, s, d], "kv_heads": hk, "dtype": str(fdt),
+        "causal": causal, "calls": fa_count,
+        "ms": device_ms(lambda: FA.flash_attention(q, k, v, causal, window,
+                                                   softcap)),
+        "plain_ms": device_ms(lambda: FA.flash_attention_plain(
+            q, k, v, causal, window, softcap)),
+        "library_ms": device_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k_rep, v_rep, is_causal=causal)),
+        "call_ms": call_ms(lambda: FA.flash_attention(q, k, v, causal,
+                                                      window, softcap)),
+        "bound_ms": fb_ms, "bound_by": fb_by}
+    lm_agg_key, lm_agg_count = max(((s, c) for s, c in lm_shapes.items()
+                                    if s[0] == "aggregate"),
+                                   key=lambda sc: sc[1])
+    _, ka, ua, cola = lm_agg_key
+    n_lm, p_lm = fleet.pbuf.shape
+    W, cid = agg_case(gen, ka, ua, n_lm, cola, dev)
+    lib_cid = None if cid is None else cid.long()
+    ab_ms, ab_by = agg_cost(ka, W.cpu(), None if cid is None else cid.cpu(),
+                            p_lm, n_lm)
+    X = fleet.pbuf
+    got = AGG.aggregate(W, X, cid)
+    want = AGG.aggregate_plain(W, X, cid)
+    torch.cuda.synchronize()
+    lm_agg_err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    agg_err = max(agg_err, lm_agg_err)
+    del got, want
+    print(f"aggregate at the LM shape (k={ka}, u={ua}, P={p_lm}) on the "
+          f"fleet's buffer: max |err| {lm_agg_err:.3e}", flush=True)
+    lm_agg_row = {
+        "k": ka, "u": ua, "col_sparse": cola, "P": p_lm,
+        "rounds": lm_agg_count, "launches": lm_launches["aggregate"],
+        "max_abs_err": lm_agg_err,
+        "ms": device_ms(lambda: AGG.aggregate(W, X, cid), reps=20),
+        "plain_ms": device_ms(lambda: AGG.aggregate_plain(W, X, cid),
+                              reps=20),
+        "library_ms": device_ms(
+            (lambda: torch.matmul(W, X)) if cid is None else
+            (lambda: torch.matmul(W, X.index_select(0, lib_cid))), reps=20),
+        "bound_ms": ab_ms, "bound_by": ab_by}
+    del fleet, X
+    torch.cuda.empty_cache()
+
+    # ---- 10. the card and the CPU agree on the LM plane --------------------
+    sm_cfg = smollm_135m.get_smoke_config()
+    sm_run = LW.LMRunConfig(n_workers=4, n_rounds=9, batch=2, seq=64,
+                            eval_every=3, seed=1)
+    _, lh_card = LW.run_lm_federation(lm_mech(), sm_cfg, sm_run)
+    _, lh_cpu = LW.run_lm_federation(lm_mech(), sm_cfg, sm_run, device="cpu")
+    for f in ("rounds", "sim_time", "comm_gb", "round_active",
+              "round_durations", "staleness_avg", "staleness_max"):
+        check(getattr(lh_card, f) == getattr(lh_cpu, f),
+              f"LM card and CPU runs differ in {f}")
+    lm_gap = float(np.max(np.abs(np.asarray(lh_card.loss_global)
+                                 - np.asarray(lh_cpu.loss_global))))
+    check(lm_gap <= LM_CARD_CPU_TOL,
+          f"LM card and CPU loss_global differ by {lm_gap}")
+    print(f"LM card vs CPU, {sm_run.n_rounds} rounds: control plane "
+          f"identical, max |loss_global gap| {lm_gap:.2e}", flush=True)
 
     top_agg, top_sgd = agg_rows[0], sgd_rows[0]
     kernels = [
@@ -353,7 +613,8 @@ def main() -> int:
          "ms": top_agg["ms"], "kernel_ms": top_agg["ms"],
          "plain_ms": top_agg["plain_ms"], "bound_ms": top_agg["bound_ms"],
          "bound_by": top_agg["bound_by"],
-         "library_ms": top_agg["library_ms"], "call_ms": top_agg["call_ms"]},
+         "library_ms": top_agg["library_ms"], "call_ms": top_agg["call_ms"],
+         "lm": lm_agg_row},
         {"name": "fused_sgd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_sgd.cu",
          "replaces": "src/repro/kernels/fused_sgd.py:95",
@@ -363,9 +624,51 @@ def main() -> int:
          "plain_ms": top_sgd["plain_ms"], "bound_ms": top_sgd["bound_ms"],
          "bound_by": top_sgd["bound_by"], "library_ms": None,
          "call_ms": top_sgd["call_ms"]},
+        {"name": "flash_attention", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+         "replaces": "src/repro/kernels/flash_attention.py:102",
+         "launches": lm_launches["flash_attention"], "max_abs_err": flash_err,
+         "max_bf16_ulps": flash_ulps,
+         "shape": {k: flash_row[k] for k in ("shape", "kv_heads", "dtype",
+                                             "causal")},
+         "ms": flash_row["ms"], "kernel_ms": flash_row["ms"],
+         "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
+         "bound_by": flash_row["bound_by"],
+         "library_ms": flash_row["library_ms"],
+         "call_ms": flash_row["call_ms"]},
     ]
     print(json.dumps({"aggregate_shapes": agg_rows}))
     print(json.dumps({"fused_sgd_shapes": sgd_rows}))
+    print(json.dumps({"lm": {
+        "config": "smollm-135m get_config() (30 layers), LMRunConfig("
+                  "n_workers=8, n_rounds=30, batch=4, seq=256, adam, "
+                  "lr=1e-3, eval_every=5), DySTop(V=3.0, t_thre=10, "
+                  "max_neighbors=3)",
+        "P": p_lm, "rounds": lm_hist.rounds[-1],
+        "rows_trained": int(sum(lm_hist.round_active)),
+        "wall_s": lm_wall, "setup_wall_s": lm_hist.setup_wall_s,
+        "plan_wall_s": lm_hist.plan_wall_s,
+        "pack_wall_s": lm_hist.pack_wall_s,
+        "stage_wall_s": lm_hist.stage_wall_s,
+        "drain_wall_s": lm_hist.drain_wall_s,
+        "eval_wall_s": lm_hist.eval_wall_s, "launches": lm_launches,
+        "flash_shapes": {str(s_[1:]): c for s_, c in lm_shapes.items()
+                         if s_[0] == "flash_attention"},
+        "aggregate_shapes": {str(s_[1:]): c for s_, c in lm_shapes.items()
+                             if s_[0] == "aggregate"},
+        "loss_global_first": float(lossg[0]),
+        "loss_global_last": float(lossg[-1]),
+        "loss_global": lossg.tolist(),
+        "max_memory_allocated_bytes": lm_peak,
+        "profiled_rounds": lm_short.n_rounds,
+        "profiled_run_wall_s": prof_hist[0].wall_s,
+        "profiled_setup_wall_s": prof_hist[0].setup_wall_s,
+        "device_busy_s": lm_busy_s,
+        "device_busy_share": (None if lm_busy_s is None
+                              else lm_busy_s / lm_loop_wall),
+        "device_top_kernels": lm_busy_top, **lm_profile,
+        "card_vs_cpu_loss_gap": lm_gap, "flash": flash_row,
+        "aggregate": lm_agg_row}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"sim": {
         "config": "SimConfig() defaults, DySTop(V=10.0, t_thre=20)",

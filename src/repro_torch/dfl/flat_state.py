@@ -7,6 +7,11 @@ with a leading worker axis; the buffer concatenates the leaves' trailing dims
 in sorted-key order — the order ``jax.tree.leaves`` gives a dict, so a buffer
 of the JAX package and a buffer of this port compare column for column (the
 sim-plane MLP's columns are ``b1, b2, b3, w1, w2, w3``).
+
+Nested trees (the LM plane's params and optimizer state, ``repro_torch.tree``)
+flatten through the same ``FlatSpec`` with leaf paths as keys: sorted paths
+are the jax leaf order.  An LM fleet is resident as two buffers, params
+``(N, P)`` and optimizer state ``(N, S)`` (``FleetSpec``).
 """
 from __future__ import annotations
 
@@ -16,13 +21,16 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.tree import tree_from_paths, tree_paths
+
 Params = Dict[str, torch.Tensor]
 
 
 @dataclasses.dataclass(frozen=True)
 class FlatSpec:
     """Ravel/unravel metadata of a stacked dict of tensors (leaves (N, ...))."""
-    keys: Tuple[str, ...]                      # leaf names, sorted
+    keys: tuple                                # leaf names (or tree paths),
+                                               #   sorted
     shapes: Tuple[Tuple[int, ...], ...]        # per-leaf trailing shapes
     dtypes: Tuple[torch.dtype, ...]            # per-leaf dtypes
     offsets: Tuple[int, ...]                   # per-leaf start column
@@ -86,3 +94,84 @@ def ravel_row(tree: Params, spec: FlatSpec) -> torch.Tensor:
     """Single-model dict -> (P,) f32 vector (inverse of ``unravel_row``)."""
     return torch.cat([tree[k].reshape(-1).to(torch.float32)
                       for k in spec.keys])
+
+
+def nbytes_of(spec: FlatSpec) -> int:
+    """Bytes of ONE row's tree at its original dtypes (Eq. 10 pricing): the
+    buffer stores f32, but a bf16 leaf ships at 2 bytes.  The LM planner's
+    ``exp_link_time`` reads this, so it shapes the control plane."""
+    return sum(s * d.itemsize for s, d in zip(spec.sizes, spec.dtypes))
+
+
+# --------------------------------------------------------------------------- #
+# nested trees and LM fleets: params + optimizer state resident together
+# --------------------------------------------------------------------------- #
+
+
+def tree_spec(tree) -> FlatSpec:
+    """The FlatSpec of ONE replica's nested tree (no worker axis); its keys
+    are the leaf paths."""
+    return spec_of({path: leaf[None] for path, leaf in tree_paths(tree)})
+
+
+def unravel_tree(vec: torch.Tensor, spec: FlatSpec, copy: bool = False):
+    """One (P,) row -> its nested tree at the recorded dtypes.  ``copy``
+    makes every leaf a fresh tensor (f32 leaves are views otherwise)."""
+    return tree_from_paths(
+        (k, vec[o:o + s].reshape(shape).to(dtype, copy=copy))
+        for k, o, s, shape, dtype in zip(spec.keys, spec.offsets, spec.sizes,
+                                         spec.shapes, spec.dtypes))
+
+
+def ravel_tree_into(tree, spec: FlatSpec, out: torch.Tensor) -> torch.Tensor:
+    """Write a nested tree into the (P,) row ``out`` in place (f32, leaf
+    dtypes widened exactly)."""
+    leaves = dict(tree_paths(tree))
+    for k, o, s in zip(spec.keys, spec.offsets, spec.sizes):
+        out[o:o + s].copy_(leaves[k].reshape(-1))
+    return out
+
+
+def unflatten_tree(buf: torch.Tensor, spec: FlatSpec):
+    """(N, P) buffer -> stacked nested tree (leaves (N, ...))."""
+    return tree_from_paths(unflatten(buf, spec).items())
+
+
+@dataclasses.dataclass(frozen=True)
+class FleetSpec:
+    """Ravel metadata of a fleet resident as TWO flat buffers: params
+    ``(N, P)`` and optimizer state ``(N, S)``.  The opt tree's columns run
+    ``mu``, ``nu``, ``step`` (sorted keys); the int32 step counter is stored
+    as f32, exact below 2^24."""
+    params: FlatSpec
+    opt: FlatSpec
+
+
+def flatten_fleet(stacked_params, stacked_opt
+                  ) -> Tuple[torch.Tensor, torch.Tensor, FleetSpec]:
+    """Stacked (params, opt) trees (leaves (N, ...)) -> ((N, P), (N, S) f32
+    buffers, FleetSpec)."""
+    pbuf, pspec = flatten_stacked(dict(tree_paths(stacked_params)))
+    obuf, ospec = flatten_stacked(dict(tree_paths(stacked_opt)))
+    return pbuf, obuf, FleetSpec(params=pspec, opt=ospec)
+
+
+def fleet_from_reference(pbuf: np.ndarray, obuf: np.ndarray, spec: FleetSpec,
+                         device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The JAX package's resident fleet buffers (``LMFleet.pbuf``/``obuf`` as
+    numpy f32) -> this port's buffers on ``device``, bit for bit: both
+    packages lay the columns out in jax leaf order."""
+    out = []
+    for name, arr, fs in (("pbuf", pbuf, spec.params),
+                          ("obuf", obuf, spec.opt)):
+        arr = np.asarray(arr)
+        if arr.dtype != np.float32 or arr.ndim != 2 \
+                or arr.shape[1] != fs.n_params:
+            raise ValueError(
+                f"fleet_from_reference: {name} is {arr.dtype} "
+                f"{arr.shape}; this fleet needs f32 (N, {fs.n_params})")
+        out.append(torch.from_numpy(arr.copy()).to(device))
+    if out[0].shape[0] != out[1].shape[0]:
+        raise ValueError(f"fleet_from_reference: pbuf has {out[0].shape[0]} "
+                         f"rows, obuf {out[1].shape[0]}")
+    return out[0], out[1]

@@ -216,14 +216,17 @@ def pack_round_ctrl(mix_row_ids: np.ndarray, train_row_ids: np.ndarray,
 
 def split_ctrl(ctrl: torch.Tensor, k_mix: int, u: int):
     """The ``pack_round_ctrl`` segments of a packed control vector (or of a
-    stacked ``(H, ·)`` horizon of them, sliced along the last axis):
-    ``(mix_ids, col_ids | None, train_ids, train_mask)`` with the mask as
-    f32."""
+    stacked ``(H, ·)`` horizon of them, sliced along the last axis), a
+    tensor or the host's numpy array: ``(mix_ids, col_ids | None,
+    train_ids, train_mask)`` with the mask as f32."""
     k_train = (ctrl.shape[-1] - k_mix - u) // 2
     mix_ids = ctrl[..., :k_mix]
     col_ids = ctrl[..., k_mix:k_mix + u] if u else None
     train_ids = ctrl[..., k_mix + u:k_mix + u + k_train]
-    train_mask = ctrl[..., k_mix + u + k_train:].to(torch.float32)
+    train_mask = ctrl[..., k_mix + u + k_train:]
+    train_mask = (train_mask.astype(np.float32)
+                  if isinstance(train_mask, np.ndarray)
+                  else train_mask.to(torch.float32))
     return mix_ids, col_ids, train_ids, train_mask
 
 

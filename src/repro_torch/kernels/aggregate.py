@@ -28,6 +28,10 @@ _SIGNATURES = {
 
 launches = 0      # CUDA launches of this kernel; callers zero it to count a run
 
+_INT_MAX = 2 ** 31 - 1
+_ROWS_PER_BLOCK = 8              # output rows per CUDA block (csrc kRows)
+_GRID_Y_MAX = 65535
+
 def aggregate_plain(W: torch.Tensor, X: torch.Tensor,
                     col_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The plain PyTorch version: ``W.float() @ X.float()[col_ids]``
@@ -58,6 +62,26 @@ def _check(W, X, col_ids) -> None:
                              f"{X.device}")
 
 
+def check_sizes(k: int, n_in: int, n_rows: int, p: int, p_blk: int) -> None:
+    """Raise unless the CUDA kernel's 32-bit sizes hold this call.  The C
+    entry takes every size as an ``int`` (ctypes would cut a larger value
+    silently) and indexes a column as ``blockIdx.x * blockDim.x +
+    threadIdx.x``, which reaches ``P + p_blk - 1``; the grid's y axis holds
+    ``ceil(k / 8)`` row blocks."""
+    for name, v in (("k", k), ("n_in", n_in), ("N", n_rows)):
+        if not 0 < v <= _INT_MAX:
+            raise ValueError(f"aggregate: {name}={v} is outside the kernel's "
+                             f"32-bit sizes")
+    if p + p_blk - 1 > _INT_MAX:
+        raise ValueError(
+            f"aggregate: P={p} parameter columns overflow the kernel's 32-bit "
+            f"column index (P + p_blk - 1 must be <= {_INT_MAX}); split the "
+            f"buffer's columns across calls")
+    if -(-k // _ROWS_PER_BLOCK) > _GRID_Y_MAX:
+        raise ValueError(f"aggregate: k={k} rows need more than "
+                         f"{_GRID_Y_MAX} row blocks")
+
+
 def aggregate(W: torch.Tensor, X: torch.Tensor,
               col_ids: Optional[torch.Tensor] = None, *,
               p_blk: int = 128) -> torch.Tensor:
@@ -82,6 +106,7 @@ def aggregate(W: torch.Tensor, X: torch.Tensor,
                              f"(contiguous={t.is_contiguous()})")
     k, n_in = W.shape
     n_rows, p = X.shape
+    check_sizes(k, n_in, n_rows, p, p_blk)
     Y = torch.empty((k, p), dtype=torch.float32, device=X.device)
     lib = _build.load("aggregate", _SIGNATURES)
     with torch.cuda.device(X.device):

@@ -3,7 +3,9 @@
 There is deliberately no backend field: the device of the tensor a wrapper is
 given decides what runs (the CUDA kernel on the card, the plain PyTorch
 version on the CPU), so no setting can route the card's main path away from
-its kernels.
+its kernels.  Only tiles a kernel takes at run time are fields here: the
+flash-attention kernel's 64-row query and key/value tiles are compile-time
+constants of ``csrc/flash_attention.cu``.
 """
 from __future__ import annotations
 

@@ -1,0 +1,43 @@
+"""Differentiable model-plane entry points of the zoo kernels.
+
+The port of the ``*_diff`` wrappers of ``repro.kernels.ops``.  There each is
+a ``jax.custom_vjp`` whose forward is the Pallas kernel and whose backward
+is ``jax.vjp`` of the matching ``kernels.ref`` oracle: the kernels ship
+forward only.  Here each is a ``torch.autograd.Function`` built the same
+way, by design: the forward is the CUDA kernel (on a CPU tensor, its plain
+version), and the backward recomputes the plain version under
+``torch.enable_grad()`` and takes its gradient.  So on the card the plain
+code runs in the backward pass only, never in the forward.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels.ref import flash_attention_plain
+
+
+class _FlashAttention(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.mask = (causal, window, softcap)
+        return _fa.flash_attention(q, k, v, causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        with torch.enable_grad():
+            out = flash_attention_plain(q, k, v, *ctx.mask)
+        dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        return dq, dk, dv, None, None, None
+
+
+def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = True, window: Optional[int] = None,
+                         softcap: Optional[float] = None) -> torch.Tensor:
+    """Differentiable flash attention over (B, H, S, D) queries and
+    (B, Hk, S, D) keys/values (``kernels.flash_attention``)."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap)

@@ -171,3 +171,181 @@ def test_cuda_kernels_match_plain_versions():
         torch.testing.assert_close(loss, ref_loss, atol=1e-4, rtol=0)
         assert torch.equal(out[a == 0], buf[a == 0])
     assert (T_AGG.launches - before[0], T_FSGD.launches - before[1]) == (4, 3)
+
+
+# --------------------------------------------------------------------------- #
+# flash attention (kernel row 4)
+# --------------------------------------------------------------------------- #
+
+from repro_torch.kernels import flash_attention as T_FA  # noqa: E402
+from repro_torch.kernels import ops as T_OPS  # noqa: E402
+
+_BF16_MANTISSA = 7
+
+
+def _bf16_ulps(got, want, f32_atol=1e-6):
+    """Elementwise distance in bf16 ulps of the larger magnitude, after
+    ``f32_atol``: both sides sum in f32 in different orders before one
+    rounding to bf16, and near 0 (|o| ~ 1e-6) that f32 noise is itself
+    several bf16 ulps of the tiny value."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    mag = np.maximum(np.abs(got), np.abs(want))
+    ulp = np.exp2(np.floor(np.log2(np.maximum(mag, 2.0 ** -126)))
+                  - _BF16_MANTISSA)
+    return np.maximum(np.abs(got - want) - f32_atol, 0.0) / ulp
+
+
+def _qkv(seed, b, h, s, d, hk=None):
+    rng = np.random.default_rng(seed)
+    hk = hk or h
+    return (rng.normal(size=(b, h, s, d)).astype(np.float32),
+            rng.normal(size=(b, hk, s, d)).astype(np.float32),
+            rng.normal(size=(b, hk, s, d)).astype(np.float32))
+
+
+# (B, H, S, causal, window, softcap): ragged S = 100 and 160 cut the
+# reference's 128-row tiles; window and softcap as the gemma2 layers use them
+_FLASH_CASES = [(2, 4, 128, True, None, None), (1, 3, 100, True, None, None),
+                (2, 2, 160, True, 48, None), (1, 4, 96, True, None, 30.0),
+                (2, 2, 64, False, None, None), (1, 2, 160, False, 40, 50.0)]
+
+
+@pytest.mark.parametrize("case", _FLASH_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_flash_plain_matches_pallas(case, dtype):
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import flash_attention as R_FA
+    from repro.kernels import ref as R_REF
+    b, h, s, causal, window, softcap = case
+    q, k, v = _qkv(b * 1000 + s, b, h, s, 64)
+    tdt = getattr(torch, dtype)
+    got = T_FA.flash_attention(*(torch.from_numpy(a).to(tdt)
+                                 for a in (q, k, v)),
+                               causal=causal, window=window, softcap=softcap)
+    with jax.default_device(jax.devices("cpu")[0]):
+        qj, kj, vj = (jnp.asarray(a, dtype) for a in (q, k, v))
+        pallas = R_FA.flash_attention(qj, kj, vj, causal=causal,
+                                      window=window, softcap=softcap,
+                                      interpret=True)
+        oracle = R_REF.flash_attention_ref(qj, kj, vj, causal=causal,
+                                           window=window, softcap=softcap)
+    got = got.float().numpy()
+    for want in (pallas, oracle):
+        want = np.asarray(want.astype(jnp.float32))
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+        else:       # f32 sums in another order, one rounding to bf16
+            assert _bf16_ulps(got, want).max() <= 1.0
+
+
+def test_flash_plain_reads_gqa_heads_in_place():
+    """k/v with Hk < H heads: query head h reads kv head h // (H // Hk),
+    the model's order, equal to repeating the kv heads (the reference)."""
+    q, k, v = _qkv(7, 2, 6, 80, 64, hk=2)
+    t = [torch.from_numpy(a) for a in (q, k, v)]
+    rep = [t[0]] + [x.repeat_interleave(3, dim=1) for x in t[1:]]
+    np.testing.assert_array_equal(T_FA.flash_attention(*t).numpy(),
+                                  T_FA.flash_attention(*rep).numpy())
+
+
+@pytest.mark.parametrize("causal, window, softcap",
+                         [(True, None, None), (True, 24, 20.0),
+                          (False, None, None)])
+def test_flash_diff_gradient_matches_jax_vjp(causal, window, softcap):
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as R_OPS
+    from repro.kernels.config import KernelConfig
+    q, k, v = _qkv(11, 2, 2, 72, 64)
+    g = np.random.default_rng(12).normal(size=q.shape).astype(np.float32)
+    t = [torch.from_numpy(a).requires_grad_() for a in (q, k, v)]
+    out = T_OPS.flash_attention_diff(*t, causal=causal, window=window,
+                                     softcap=softcap)
+    grads = torch.autograd.grad(out, t, torch.from_numpy(g))
+    with jax.default_device(jax.devices("cpu")[0]):
+        kc = KernelConfig(backend="pallas")
+        j_out, pullback = jax.vjp(
+            lambda a, b_, c: R_OPS.flash_attention_diff(
+                a, b_, c, kc, causal=causal, window=window, softcap=softcap),
+            *(jnp.asarray(a) for a in (q, k, v)))
+        j_grads = pullback(jnp.asarray(g))
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
+                               atol=1e-5, rtol=0)
+    for got, want in zip(grads, j_grads):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4,
+                                   rtol=0)
+
+
+def test_flash_fully_masked_rows_are_zero():
+    """A window <= 0 masks every column of a causal row: the output is 0
+    (the kernel's acc / max(l, 1e-30)), not NaN and not an average."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(3, 1, 2, 50, 64))
+    assert torch.equal(T_FA.flash_attention(q, k, v, window=0),
+                       torch.zeros_like(q))
+    out = T_FA.flash_attention(q, k, v, causal=False, window=-10)
+    assert torch.equal(out[:, :, -11:], torch.zeros_like(out[:, :, -11:]))
+    assert torch.isfinite(out).all() and out[:, :, :-11].abs().sum() > 0
+
+
+def test_flash_checks_its_inputs():
+    q = torch.zeros((1, 4, 8, 64))
+    with pytest.raises(ValueError, match="do not group"):
+        T_FA.flash_attention(q, q[:, :3], q[:, :3])
+    with pytest.raises(ValueError, match="must be \\(B, Hk, S, D\\)"):
+        T_FA.flash_attention(q, q[:, :, :4], q[:, :, :4])
+    with pytest.raises(ValueError, match="head_dim"):
+        T_FA.check_sizes(1, 4, 8, 96)
+    with pytest.raises(ValueError, match="32-bit row"):
+        T_FA.check_sizes(1, 4, 2 ** 31 - 10, 64)
+    with pytest.raises(ValueError, match="grid"):
+        T_FA.check_sizes(70_000, 4, 8, 64)
+    T_FA.check_sizes(4, 9, 256, 64)
+
+
+@pytest.mark.parametrize("p, ok", [(2 ** 31 - 128, True),
+                                   (2 ** 31 - 127, False),
+                                   (2_614_341_888, False)])
+def test_aggregate_rejects_columns_past_32_bits(p, ok):
+    """The kernel's C ints cover P + p_blk - 1 <= 2^31 - 1; a bigger fleet
+    (gemma2-2b's P is ~2.6e9) is refused instead of wrapping."""
+    if ok:
+        T_AGG.check_sizes(8, 16, 8, p, 128)
+    else:
+        with pytest.raises(ValueError, match="32-bit column index"):
+            T_AGG.check_sizes(8, 16, 8, p, 128)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernel_matches_plain_version():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    before = T_FA.launches
+    cases = [((4, 9, 256, 64, 3), "bfloat16", True, None, None),
+             ((1, 4, 200, 64, 4), "float32", True, None, None),
+             ((2, 4, 160, 128, 2), "float32", True, 64, 50.0),
+             ((1, 2, 130, 256, 2), "bfloat16", False, None, None)]
+    for (b, h, s, d, hk), dtype, causal, window, softcap in cases:
+        q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dtype))
+                   for a in _qkv(s + d, b, h, s, d, hk=hk))
+        got = T_FA.flash_attention(q, k, v, causal, window, softcap)
+        want = T_FA.flash_attention_plain(q, k, v, causal, window, softcap)
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        else:
+            assert _bf16_ulps(got.float().cpu(),
+                              want.float().cpu()).max() <= 2.0
+    # the model's layout: (B, S, H, D) projections as transposed views
+    x = torch.randn((2, 96, 6, 64), device=dev)
+    kv = torch.randn((2, 96, 2, 64), device=dev)
+    got = T_FA.flash_attention(x.transpose(1, 2), kv.transpose(1, 2),
+                               kv.transpose(1, 2))
+    assert got.transpose(1, 2).is_contiguous()
+    torch.testing.assert_close(
+        got, T_FA.flash_attention_plain(x.transpose(1, 2), kv.transpose(1, 2),
+                                        kv.transpose(1, 2)),
+        atol=1e-5, rtol=0)
+    assert T_FA.launches - before == 5
