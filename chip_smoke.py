@@ -1,12 +1,13 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of DySTop on one card: the simulation plane
-and the LM fleet.
+and the LM fleet over two model families (dense: smollm-135m; ssm:
+mamba2-2.7b).
 
     python3 chip_smoke.py            # from the repository root
 
 Phases (any failure raises, and the script exits nonzero with no result):
 
-1. print the card's name and power limit; build both CUDA kernels from
+1. print the card's name and power limit; build the four CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes (N = 100 workers, P = 6,922 parameters): the Eq. 4
@@ -42,10 +43,8 @@ Phases (any failure raises, and the script exits nonzero with no result):
    batch=4, seq=256, optimizer="adam", lr=1e-3, eval_every=5))``, all 30
    layers, as ``examples/dfl_lm.py`` runs it except ``seq=256`` for its 64,
    so each row's attention spans four of the kernel's 64-row kv tiles — read
-   the counters (flash_attention and aggregate must have launched), check
-   the evals are finite, and profile a 10-round copy: the card's kernel
-   time over that copy's own round-loop wall (its ``wall_s`` less its
-   ``setup_wall_s``) is the busy share;
+   the counters (flash_attention and aggregate must have launched) and
+   check the evals are finite;
 9. at the LM path's commonest shapes, hold each kernel against its plain
    version once more and time it: flash on the model's strided q/k/v views
    (2 bf16 ulps) beside its plain version,
@@ -53,16 +52,39 @@ Phases (any failure raises, and the script exits nonzero with no result):
    over 3.35 TB/s against flops over the peak for the inputs' type, 989
    TFLOP/s bf16 or 67 TFLOP/s f32); aggregate over the fleet's real (8, P)
    buffer (f32 atol and rtol 1e-5) beside its plain version, ``matmul``
-   and its bound;
+   and its bound; then, the fleet freed, profile a 10-round copy of phase
+   8: the card's kernel time over that copy's own round-loop wall (its
+   ``wall_s`` less its ``setup_wall_s``) is the busy share;
 10. run the smoke geometry of smollm-135m for 9 rounds with 4 workers (two
    rounds train 3 and 4 rows) on the card and on the CPU: the control plane
    must match exactly and ``loss_global`` within 2e-2 (bf16 activations
    round in other kernels on the two devices, and Adam steps the rounded
-   parameters).
+   parameters);
+11. hold the ``ssd_chunk`` kernel against its plain version on the card,
+   with TF32 off, to atol and rtol 2e-4 (the JAX package's own kernel
+   tolerance), outputs finite: the mamba2 path's shape (G, H, Q, N, P) =
+   (8, 80, 256, 128, 64) on the model's head-major views, the smoke shape,
+   a ragged Q = 200, and a large ``dt`` whose masked exponents pass 88;
+12. zero the launch counters, run the LM fleet on mamba2-2.7b at full width
+   and 8 of its 64 layers — ``run_lm_federation(DySTop(V=3.0, t_thre=10,
+   max_neighbors=3), replace(mamba2_2_7b.get_config(), n_layers=8),
+   LMRunConfig(n_workers=8, n_rounds=30, batch=4, seq=512,
+   optimizer="adam", lr=1e-3, eval_every=5))``, two 256-step chunks per
+   row — read the counters (ssd_chunk and aggregate must have launched,
+   flash_attention must not), check the evals, parameters and optimizer
+   state are finite, record the largest masked exponent the path met, hold
+   ``aggregate`` against its plain version on the fleet's (8, P) buffer,
+   and profile a 10-round copy for the busy share as in phase 9;
+13. time ``ssd_chunk`` at the path's commonest shape beside its plain
+   version and its bound (no single PyTorch call computes it);
+14. run the mamba2 smoke geometry for 9 rounds with 4 workers (seq 64 over
+   chunk 32) on the card and on the CPU: control plane identical,
+   ``loss_global`` within 2e-2.
 
 Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
-``{"kernels": [...]}`` and ``{"sim": {...}}`` lines, the card's name and
-power limit and, as the last line, ``{"ok": true, "device": {...}}``.
+``{"mamba2": ...}``, ``{"kernels": [...]}`` and ``{"sim": {...}}`` lines,
+the card's name and power limit and, as the last line, ``{"ok": true,
+"device": {...}}``.
 """
 from __future__ import annotations
 
@@ -160,6 +182,14 @@ def device_profile(fn):
                           for us, k, c in rows[:5]], extra
 
 
+def all_finite(buf) -> bool:
+    """Whether every value of an (N, P) buffer is finite, one row at a time:
+    ``torch.isfinite`` makes a temporary as large as its input (an f32
+    ``abs``), too much beside a 43 GB fleet."""
+    import torch
+    return all(bool(torch.isfinite(row).all()) for row in buf)
+
+
 def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
@@ -254,6 +284,29 @@ def bf16_ulps(got, want, f32_atol: float = 1e-6) -> float:
     return float(((got - want).abs() - f32_atol).clamp_min(0).div(ulp).max())
 
 
+def ssd_case(gen, g, h, q, n, p, rate, dev):
+    """Inputs as ``ssm_forward`` hands them over: Bc, Cc (G, Q, N); cum_la a
+    cumulative sum of negative log decays, ``rate`` per step on average,
+    and xbar, both as head-major views of (G, Q, H, .) tensors."""
+    import torch
+    Bc = torch.randn((g, q, n), generator=gen)
+    Cc = torch.randn((g, q, n), generator=gen)
+    step = torch.nn.functional.softplus(torch.randn((g, q, h), generator=gen))
+    la = -torch.cumsum(step * rate, dim=1)
+    xb = torch.randn((g, q, h, p), generator=gen)
+    return (Bc.to(dev), Cc.to(dev), la.to(dev).transpose(1, 2),
+            xb.to(dev).transpose(1, 2))
+
+
+def ssd_cost(g, h, q, n, p):
+    """Bytes: Bc, Cc, cum_la and xbar read once, y written once (f32).
+    Flops: for each causal (q, t) pair of each chunk, 2 N for the score and
+    H * 2 P for the products, over the f32 CUDA-core peak."""
+    pairs = q * (q + 1) // 2
+    nbytes = 4 * (2 * g * q * n + g * h * q + 2 * g * h * q * p)
+    return bound(nbytes, float(g) * pairs * (2 * n + 2 * h * p))
+
+
 def recorder(counter, agg, fa=None):
     """Wrappers around the kernels' entry points that count each call's
     shape (the kernels' own launch counters stay the only proof of
@@ -271,6 +324,97 @@ def recorder(counter, agg, fa=None):
     return rec_agg, rec_fa
 
 
+def ssd_recorder(counter, exponents, ssd):
+    """A wrapper around ``ssd_chunk`` that counts each call's shape and
+    keeps, on the card and without a sync, the largest masked exponent
+    la_0 - la_{Q-1} of the call (la falls along the chunk, so it is the
+    largest la_q - la_t over t > q: what an exp-before-mask form would
+    evaluate)."""
+    def rec_ssd(Bc, Cc, cum_la, xbar):
+        g, h, q, p = xbar.shape
+        counter[("ssd_chunk", g, h, q, Bc.shape[2], p)] += 1
+        exponents.append((cum_la[..., 0] - cum_la[..., -1]).detach().max())
+        return ssd(Bc, Cc, cum_la, xbar)
+
+    return rec_ssd
+
+
+def lm_aggregate_row(gen, shapes, launches: int, buf, label: str) -> dict:
+    """Hold ``aggregate`` against its plain version on an LM fleet's real
+    (N, P) buffer at the path's commonest mix shape (f32 atol and rtol
+    1e-5), and time it beside its plain version, ``matmul`` and its bound
+    (median of 10 launches: each moves GBs)."""
+    import torch
+    from repro_torch.kernels import aggregate as AGG
+    (_, k, u, col), count = max(((s, c) for s, c in shapes.items()
+                                 if s[0] == "aggregate"), key=lambda sc: sc[1])
+    n, p = buf.shape
+    W, cid = agg_case(gen, k, u, n, col, buf.device)
+    b_ms, b_by = agg_cost(k, W.cpu(), None if cid is None else cid.cpu(), p,
+                          n)
+    got = AGG.aggregate(W, buf, cid)
+    want = AGG.aggregate_plain(W, buf, cid)
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    del got, want
+    print(f"aggregate at the {label} shape (k={k}, u={u}, P={p}) on the "
+          f"fleet's buffer: max |err| {err:.3e}", flush=True)
+    lib_cid = None if cid is None else cid.long()
+    return {
+        "k": k, "u": u, "col_sparse": col, "P": p, "rounds": count,
+        "launches": launches, "max_abs_err": err,
+        "ms": device_ms(lambda: AGG.aggregate(W, buf, cid), reps=10),
+        "plain_ms": device_ms(lambda: AGG.aggregate_plain(W, buf, cid),
+                              reps=10),
+        "library_ms": device_ms(
+            (lambda: torch.matmul(W, buf)) if cid is None else
+            (lambda: torch.matmul(W, buf.index_select(0, lib_cid))), reps=10),
+        "bound_ms": b_ms, "bound_by": b_by}
+
+
+def lm_profile(mech, cfg, run) -> dict:
+    """Profile a 10-round copy of an LM run: the card's kernel time over the
+    copy's own round loop (its ``wall_s`` less its ``setup_wall_s``) is the
+    busy share."""
+    from repro_torch.dfl import lm_worker as LW
+    short = dataclasses.replace(run, n_rounds=10)
+    hist = []
+    busy_s, top, extra = device_profile(
+        lambda: hist.append(LW.run_lm_federation(mech, cfg, short)[1]))
+    loop_wall = hist[0].wall_s - hist[0].setup_wall_s
+    return {"profiled_rounds": short.n_rounds,
+            "profiled_run_wall_s": hist[0].wall_s,
+            "profiled_setup_wall_s": hist[0].setup_wall_s,
+            "device_busy_s": busy_s,
+            "device_busy_share": (None if busy_s is None
+                                  else busy_s / loop_wall),
+            "device_top_kernels": top, **extra}
+
+
+def lm_card_vs_cpu(mech, cfg, label: str) -> float:
+    """Run ``cfg`` for 9 rounds with 4 workers on the card and on the CPU:
+    the control plane must match exactly and ``loss_global`` within
+    ``LM_CARD_CPU_TOL``.  Returns the largest loss gap."""
+    import numpy as np
+    from repro_torch.dfl import lm_worker as LW
+    run = LW.LMRunConfig(n_workers=4, n_rounds=9, batch=2, seq=64,
+                         eval_every=3, seed=1)
+    _, card = LW.run_lm_federation(mech(), cfg, run)
+    _, cpu = LW.run_lm_federation(mech(), cfg, run, device="cpu")
+    for f in ("rounds", "sim_time", "comm_gb", "round_active",
+              "round_durations", "staleness_avg", "staleness_max"):
+        check(getattr(card, f) == getattr(cpu, f),
+              f"{label} card and CPU runs differ in {f}")
+    gap = float(np.max(np.abs(np.asarray(card.loss_global)
+                              - np.asarray(cpu.loss_global))))
+    check(gap <= LM_CARD_CPU_TOL,
+          f"{label} card and CPU loss_global differ by {gap}")
+    print(f"{label} card vs CPU, {run.n_rounds} rounds: control plane "
+          f"identical, max |loss_global gap| {gap:.2e}", flush=True)
+    return gap
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -283,11 +427,12 @@ def main() -> int:
     from repro_torch.dfl import worker as WK
     from repro_torch.dfl.simulator import SimConfig, run_simulation
     from repro_torch.kernels import _build
-    from repro_torch.configs import smollm_135m
+    from repro_torch.configs import mamba2_2_7b, smollm_135m
     from repro_torch.dfl import lm_worker as LW
     from repro_torch.kernels import aggregate as AGG
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_sgd as FSGD
+    from repro_torch.kernels import ssd_chunk as SC
 
     torch.backends.cuda.matmul.allow_tf32 = False   # IEEE f32 everywhere
     torch.backends.cudnn.allow_tf32 = False
@@ -505,17 +650,10 @@ def main() -> int:
     check(lossg.shape == (6,) and np.isfinite(lossg).all()
           and np.isfinite(lm_hist.round_loss).all(),
           f"LM evals not finite: {lossg.tolist()}")
-    check(bool(torch.isfinite(fleet.pbuf).all()), "LM params not finite")
+    check(all_finite(fleet.pbuf), "LM params not finite")
     print(f"LM path: {lm_hist.rounds[-1]} rounds in {lm_wall:.2f} s, "
           f"launches {lm_launches}, loss_global {lossg[0]:.4f} -> "
           f"{lossg[-1]:.4f}", flush=True)
-    lm_short = dataclasses.replace(lm_run, n_rounds=10)
-    prof_hist = []
-    lm_busy_s, lm_busy_top, lm_profile = device_profile(
-        lambda: prof_hist.append(
-            LW.run_lm_federation(lm_mech(), lm_cfg, lm_short)[1]))
-    # the round loop's own wall in the profiled run (setup left out)
-    lm_loop_wall = prof_hist[0].wall_s - prof_hist[0].setup_wall_s
 
     # ---- 9. times at the LM path's shapes ----------------------------------
     fa_key, fa_count = max(((s, c) for s, c in lm_shapes.items()
@@ -553,61 +691,115 @@ def main() -> int:
         "call_ms": call_ms(lambda: FA.flash_attention(q, k, v, causal,
                                                       window, softcap)),
         "bound_ms": fb_ms, "bound_by": fb_by}
-    lm_agg_key, lm_agg_count = max(((s, c) for s, c in lm_shapes.items()
-                                    if s[0] == "aggregate"),
-                                   key=lambda sc: sc[1])
-    _, ka, ua, cola = lm_agg_key
-    n_lm, p_lm = fleet.pbuf.shape
-    W, cid = agg_case(gen, ka, ua, n_lm, cola, dev)
-    lib_cid = None if cid is None else cid.long()
-    ab_ms, ab_by = agg_cost(ka, W.cpu(), None if cid is None else cid.cpu(),
-                            p_lm, n_lm)
-    X = fleet.pbuf
-    got = AGG.aggregate(W, X, cid)
-    want = AGG.aggregate_plain(W, X, cid)
-    torch.cuda.synchronize()
-    lm_agg_err = float((got - want).abs().max())
-    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
-    agg_err = max(agg_err, lm_agg_err)
-    del got, want
-    print(f"aggregate at the LM shape (k={ka}, u={ua}, P={p_lm}) on the "
-          f"fleet's buffer: max |err| {lm_agg_err:.3e}", flush=True)
-    lm_agg_row = {
-        "k": ka, "u": ua, "col_sparse": cola, "P": p_lm,
-        "rounds": lm_agg_count, "launches": lm_launches["aggregate"],
-        "max_abs_err": lm_agg_err,
-        "ms": device_ms(lambda: AGG.aggregate(W, X, cid), reps=20),
-        "plain_ms": device_ms(lambda: AGG.aggregate_plain(W, X, cid),
-                              reps=20),
-        "library_ms": device_ms(
-            (lambda: torch.matmul(W, X)) if cid is None else
-            (lambda: torch.matmul(W, X.index_select(0, lib_cid))), reps=20),
-        "bound_ms": ab_ms, "bound_by": ab_by}
-    del fleet, X
+    lm_agg_row = lm_aggregate_row(gen, lm_shapes, lm_launches["aggregate"],
+                                  fleet.pbuf, "LM")
+    agg_err = max(agg_err, lm_agg_row["max_abs_err"])
+    del fleet
     torch.cuda.empty_cache()
+    lm_busy = lm_profile(lm_mech(), lm_cfg, lm_run)
 
     # ---- 10. the card and the CPU agree on the LM plane --------------------
-    sm_cfg = smollm_135m.get_smoke_config()
-    sm_run = LW.LMRunConfig(n_workers=4, n_rounds=9, batch=2, seq=64,
-                            eval_every=3, seed=1)
-    _, lh_card = LW.run_lm_federation(lm_mech(), sm_cfg, sm_run)
-    _, lh_cpu = LW.run_lm_federation(lm_mech(), sm_cfg, sm_run, device="cpu")
-    for f in ("rounds", "sim_time", "comm_gb", "round_active",
-              "round_durations", "staleness_avg", "staleness_max"):
-        check(getattr(lh_card, f) == getattr(lh_cpu, f),
-              f"LM card and CPU runs differ in {f}")
-    lm_gap = float(np.max(np.abs(np.asarray(lh_card.loss_global)
-                                 - np.asarray(lh_cpu.loss_global))))
-    check(lm_gap <= LM_CARD_CPU_TOL,
-          f"LM card and CPU loss_global differ by {lm_gap}")
-    print(f"LM card vs CPU, {sm_run.n_rounds} rounds: control plane "
-          f"identical, max |loss_global gap| {lm_gap:.2e}", flush=True)
+    lm_gap = lm_card_vs_cpu(lm_mech, smollm_135m.get_smoke_config(), "LM")
+
+    # ---- 11. the ssd_chunk kernel against its plain version ---------------
+    check(not torch.backends.cuda.matmul.allow_tf32,
+          "the plain versions must run IEEE f32 products")
+    ssd_err = 0.0
+    ssd_cases = [("path (8, 80, 256, 128, 64)", (8, 80, 256, 128, 64), 0.1),
+                 ("smoke (4, 16, 32, 32, 32)", (4, 16, 32, 32, 32), 0.1),
+                 ("ragged Q=200", (2, 8, 200, 128, 64), 0.1),
+                 ("large dt: masked exponents past 88", (2, 8, 256, 128, 64),
+                  2.0)]
+    for label, (g_, h_, q_, n_, p_), rate in ssd_cases:
+        ins = ssd_case(gen, g_, h_, q_, n_, p_, rate, dev)
+        if rate > 1.0:
+            top = float((ins[2][..., 0] - ins[2][..., -1]).max())
+            check(top > 88.0, f"ssd {label}: largest masked exponent {top}")
+        got = SC.ssd_chunk(*ins)
+        want = SC.ssd_chunk_plain(*ins)
+        torch.cuda.synchronize()
+        check(bool(torch.isfinite(got).all()), f"ssd {label}: non-finite")
+        err = float((got - want).abs().max())
+        ssd_err = max(ssd_err, err)
+        torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+        print(f"ssd_chunk {label}: max |err| {err:.3e}", flush=True)
+    del ins, got, want
+
+    # ---- 12. the mamba2 LM path at full width, through the kernels --------
+    m_cfg = dataclasses.replace(mamba2_2_7b.get_config(), n_layers=8)
+    m_run = LW.LMRunConfig(n_workers=8, n_rounds=30, batch=4, seq=512,
+                           optimizer="adam", lr=1e-3, eval_every=5)
+    m_shapes: Counter = Counter()
+    exponents = []
+    orig_ssd = SC.ssd_chunk
+    AGG.aggregate, _ = recorder(m_shapes, orig_agg)
+    SC.ssd_chunk = ssd_recorder(m_shapes, exponents, orig_ssd)
+    AGG.launches = 0
+    FA.launches = 0
+    SC.launches = 0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        m_fleet, m_hist = LW.run_lm_federation(lm_mech(), m_cfg, m_run)
+    finally:
+        AGG.aggregate, SC.ssd_chunk = orig_agg, orig_ssd
+    torch.cuda.synchronize()
+    m_wall = time.perf_counter() - t0
+    m_launches = {"ssd_chunk": SC.launches, "aggregate": AGG.launches,
+                  "flash_attention": FA.launches}
+    check(m_launches["ssd_chunk"] > 0 and m_launches["aggregate"] > 0,
+          f"a kernel of the mamba2 path never launched: {m_launches}")
+    check(m_launches["flash_attention"] == 0,
+          f"mamba2 has no attention, yet flash launched: {m_launches}")
+    m_peak = torch.cuda.max_memory_allocated()
+    m_expo = float(torch.stack(exponents).max())
+    m_loss = np.asarray(m_hist.loss_global)
+    check(m_loss.shape == (6,) and np.isfinite(m_loss).all()
+          and np.isfinite(m_hist.round_loss).all(),
+          f"mamba2 evals not finite: {m_loss.tolist()}")
+    check(all_finite(m_fleet.pbuf) and all_finite(m_fleet.obuf),
+          "mamba2 params or optimizer state not finite")
+    p_m = m_fleet.pbuf.shape[1]
+    print(f"mamba2 path (8 layers, P={p_m}): {m_hist.rounds[-1]} rounds in "
+          f"{m_wall:.2f} s, launches {m_launches}, loss_global "
+          f"{m_loss[0]:.4f} -> {m_loss[-1]:.4f}, peak "
+          f"{m_peak / 1e9:.2f} GB, largest masked exponent {m_expo:.1f}",
+          flush=True)
+    m_agg_row = lm_aggregate_row(gen, m_shapes, m_launches["aggregate"],
+                                 m_fleet.pbuf, "mamba2")
+    agg_err = max(agg_err, m_agg_row["max_abs_err"])
+    del m_fleet
+    torch.cuda.empty_cache()
+    m_busy = lm_profile(lm_mech(), m_cfg, m_run)
+    torch.cuda.empty_cache()
+
+    # ---- 13. ssd_chunk timed at the path's commonest shape ----------------
+    ssd_key, ssd_count = max(((s_, c) for s_, c in m_shapes.items()
+                              if s_[0] == "ssd_chunk"), key=lambda sc: sc[1])
+    _, g_, h_, q_, n_, p_ = ssd_key
+    ins = ssd_case(gen, g_, h_, q_, n_, p_, 0.1, dev)
+    sb_ms, sb_by = ssd_cost(g_, h_, q_, n_, p_)
+    ssd_row = {
+        "shape": [g_, h_, q_, n_, p_], "calls": ssd_count,
+        "ms": device_ms(lambda: SC.ssd_chunk(*ins)),
+        "plain_ms": device_ms(lambda: SC.ssd_chunk_plain(*ins)),
+        "call_ms": call_ms(lambda: SC.ssd_chunk(*ins)),
+        "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": None}
+    del ins
+    print(f"ssd_chunk at {ssd_row['shape']}: {ssd_row['ms']:.4f} ms, plain "
+          f"{ssd_row['plain_ms']:.4f} ms, bound {sb_ms:.4f} ms ({sb_by})",
+          flush=True)
+
+    # ---- 14. the card and the CPU agree on the mamba2 smoke geometry -------
+    m_gap = lm_card_vs_cpu(lm_mech, mamba2_2_7b.get_smoke_config(), "mamba2")
 
     top_agg, top_sgd = agg_rows[0], sgd_rows[0]
     kernels = [
         {"name": "aggregate", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/aggregate.cu",
-         "replaces": "src/repro/kernels/aggregate.py:210",
+         "replaces": "src/repro/kernels/aggregate.py:220",
          "launches": launches["aggregate"], "max_abs_err": agg_err,
          "shape": {k: top_agg[k] for k in ("k", "u", "col_sparse")},
          "ms": top_agg["ms"], "kernel_ms": top_agg["ms"],
@@ -617,7 +809,7 @@ def main() -> int:
          "lm": lm_agg_row},
         {"name": "fused_sgd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_sgd.cu",
-         "replaces": "src/repro/kernels/fused_sgd.py:95",
+         "replaces": "src/repro/kernels/fused_sgd.py:112",
          "launches": launches["fused_sgd"], "max_abs_err": sgd_err,
          "shape": {k: top_sgd[k] for k in ("k", "with_losses")},
          "ms": top_sgd["ms"], "kernel_ms": top_sgd["ms"],
@@ -636,6 +828,15 @@ def main() -> int:
          "bound_by": flash_row["bound_by"],
          "library_ms": flash_row["library_ms"],
          "call_ms": flash_row["call_ms"]},
+        {"name": "ssd_chunk", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
+         "replaces": "src/repro/kernels/ssd_chunk.py:62",
+         "launches": m_launches["ssd_chunk"], "max_abs_err": ssd_err,
+         "shape": {"G_H_Q_N_P": ssd_row["shape"]},
+         "ms": ssd_row["ms"], "kernel_ms": ssd_row["ms"],
+         "plain_ms": ssd_row["plain_ms"], "bound_ms": ssd_row["bound_ms"],
+         "bound_by": ssd_row["bound_by"], "library_ms": None,
+         "call_ms": ssd_row["call_ms"]},
     ]
     print(json.dumps({"aggregate_shapes": agg_rows}))
     print(json.dumps({"fused_sgd_shapes": sgd_rows}))
@@ -644,7 +845,7 @@ def main() -> int:
                   "n_workers=8, n_rounds=30, batch=4, seq=256, adam, "
                   "lr=1e-3, eval_every=5), DySTop(V=3.0, t_thre=10, "
                   "max_neighbors=3)",
-        "P": p_lm, "rounds": lm_hist.rounds[-1],
+        "P": lm_agg_row["P"], "rounds": lm_hist.rounds[-1],
         "rows_trained": int(sum(lm_hist.round_active)),
         "wall_s": lm_wall, "setup_wall_s": lm_hist.setup_wall_s,
         "plan_wall_s": lm_hist.plan_wall_s,
@@ -659,16 +860,31 @@ def main() -> int:
         "loss_global_first": float(lossg[0]),
         "loss_global_last": float(lossg[-1]),
         "loss_global": lossg.tolist(),
-        "max_memory_allocated_bytes": lm_peak,
-        "profiled_rounds": lm_short.n_rounds,
-        "profiled_run_wall_s": prof_hist[0].wall_s,
-        "profiled_setup_wall_s": prof_hist[0].setup_wall_s,
-        "device_busy_s": lm_busy_s,
-        "device_busy_share": (None if lm_busy_s is None
-                              else lm_busy_s / lm_loop_wall),
-        "device_top_kernels": lm_busy_top, **lm_profile,
+        "max_memory_allocated_bytes": lm_peak, **lm_busy,
         "card_vs_cpu_loss_gap": lm_gap, "flash": flash_row,
         "aggregate": lm_agg_row}}))
+    print(json.dumps({"mamba2": {
+        "config": "mamba2-2.7b get_config() at n_layers=8 (of 64), "
+                  "LMRunConfig(n_workers=8, n_rounds=30, batch=4, seq=512, "
+                  "adam, lr=1e-3, eval_every=5), DySTop(V=3.0, t_thre=10, "
+                  "max_neighbors=3)",
+        "P": p_m, "rounds": m_hist.rounds[-1],
+        "rows_trained": int(sum(m_hist.round_active)),
+        "wall_s": m_wall, "setup_wall_s": m_hist.setup_wall_s,
+        "plan_wall_s": m_hist.plan_wall_s,
+        "pack_wall_s": m_hist.pack_wall_s,
+        "stage_wall_s": m_hist.stage_wall_s,
+        "drain_wall_s": m_hist.drain_wall_s,
+        "eval_wall_s": m_hist.eval_wall_s, "launches": m_launches,
+        "ssd_shapes": {str(s_[1:]): c for s_, c in m_shapes.items()
+                       if s_[0] == "ssd_chunk"},
+        "aggregate_shapes": {str(s_[1:]): c for s_, c in m_shapes.items()
+                             if s_[0] == "aggregate"},
+        "largest_masked_exponent": m_expo,
+        "loss_global": m_loss.tolist(),
+        "max_memory_allocated_bytes": m_peak, **m_busy,
+        "card_vs_cpu_loss_gap": m_gap, "ssd_chunk": ssd_row,
+        "aggregate": m_agg_row}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"sim": {
         "config": "SimConfig() defaults, DySTop(V=10.0, t_thre=20)",

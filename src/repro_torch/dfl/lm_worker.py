@@ -13,8 +13,9 @@ The port of ``repro.dfl.lm_worker`` on its resident, pipelined path:
     Eq. 4 output straight into the train step.
   * local training gathers only the k activated rows: each takes one
     optimizer step through the model (attention in ``kernels.
-    flash_attention``) in a loop over the rows — the JAX package vmaps them
-    inside one ``lax.scan`` — and writes its params and state back in place.
+    flash_attention``, mamba2's intra-chunk SSD in ``kernels.ssd_chunk``)
+    in a loop over the rows — the JAX package vmaps them inside one
+    ``lax.scan`` — and writes its params and state back in place.
 
 Everything runs on ``device`` ("cuda" unless the caller asks for "cpu",
 where the kernels' plain versions run); the control plane and the token

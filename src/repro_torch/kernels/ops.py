@@ -16,7 +16,8 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
-from repro_torch.kernels.ref import flash_attention_plain
+from repro_torch.kernels import ssd_chunk as _sc
+from repro_torch.kernels.ref import flash_attention_plain, ssd_chunk_plain
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -41,3 +42,24 @@ def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Differentiable flash attention over (B, H, S, D) queries and
     (B, Hk, S, D) keys/values (``kernels.flash_attention``)."""
     return _FlashAttention.apply(q, k, v, causal, window, softcap)
+
+
+class _SSDChunk(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, Bc, Cc, cum_la, xbar):
+        ctx.save_for_backward(Bc, Cc, cum_la, xbar)
+        return _sc.ssd_chunk(Bc, Cc, cum_la, xbar)
+
+    @staticmethod
+    def backward(ctx, g):
+        ins = [t.detach().requires_grad_() for t in ctx.saved_tensors]
+        with torch.enable_grad():
+            out = ssd_chunk_plain(*ins)
+        return torch.autograd.grad(out, ins, g)
+
+
+def ssd_chunk_diff(Bc: torch.Tensor, Cc: torch.Tensor, cum_la: torch.Tensor,
+                   xbar: torch.Tensor) -> torch.Tensor:
+    """Differentiable intra-chunk SSD over (G, Q, N) B/C, (G, H, Q) log
+    decays and (G, H, Q, P) inputs (``kernels.ssd_chunk``)."""
+    return _SSDChunk.apply(Bc, Cc, cum_la, xbar)

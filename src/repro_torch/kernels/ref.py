@@ -41,3 +41,30 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1)
     probs = torch.where(mask.any(-1, keepdim=True), probs, 0.0)
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
+
+
+def ssd_chunk_plain(Bc: torch.Tensor, Cc: torch.Tensor, cum_la: torch.Tensor,
+                    xbar: torch.Tensor) -> torch.Tensor:
+    """The Mamba-2 intra-chunk SSD dual form, ``repro.kernels.ref.
+    ssd_chunk_ref`` in f32::
+
+        y[g, h, q] = sum_{t <= q} (C[g, q] . B[g, t])
+                     * exp(la[g, h, q] - la[g, h, t]) * xbar[g, h, t]
+
+    ``Bc``/``Cc`` (G, Q, N) are shared by the heads; ``cum_la`` (G, H, Q);
+    ``xbar`` (G, H, Q, P); returns (G, H, Q, P) f32.
+
+    The causal mask is applied before ``exp`` (``exp(where(causal, decay,
+    -inf))``), where the reference takes ``where(causal, exp(decay), 0)``.
+    The forward is the same.  The gradient differs only where the
+    reference's is not finite: a masked exponent past f32's ``exp`` limit
+    (~88, a long chunk at large ``dt``) overflows there to inf, and the
+    reference's backward multiplies it by 0."""
+    scores = Cc.float() @ Bc.float().transpose(-1, -2)            # (G, Q, Q)
+    la = cum_la.float()
+    q = scores.shape[-1]
+    causal = torch.ones((q, q), dtype=torch.bool,
+                        device=scores.device).tril()
+    decay = la[..., :, None] - la[..., None, :]                 # (G, H, Q, Q)
+    l_mat = torch.exp(torch.where(causal, decay, -torch.inf))
+    return (scores[:, None] * l_mat) @ xbar.float()

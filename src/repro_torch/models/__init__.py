@@ -1,1 +1,2 @@
-"""The model zoo of the port: the dense decoder family (``registry``)."""
+"""The model zoo of the port: the dense decoder and ssm (mamba2) families
+(``registry``)."""

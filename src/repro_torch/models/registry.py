@@ -2,8 +2,9 @@
 
 The port of ``repro.models.registry``.  The LM fleet talks only to
 ``init_params``, ``compute_loss`` and ``forward_logits``.  Every arch id of
-the JAX package is listed in ``ARCH_IDS``; only the dense ones resolve, the
-rest raise ``NotImplementedError`` naming their ROADMAP item.
+the JAX package is listed in ``ARCH_IDS``; the dense ones and mamba2-2.7b
+(ssm) resolve, the rest raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ ARCH_IDS = [
 ]
 DENSE_ARCH_IDS = ("gemma2-2b", "smollm-135m", "smollm-360m", "stablelm-1.6b")
 _UNPORTED = {
-    "kimi-k2-1t-a32b": "moe", "grok-1-314b": "moe", "mamba2-2.7b": "ssm",
+    "kimi-k2-1t-a32b": "moe", "grok-1-314b": "moe",
     "recurrentgemma-2b": "hybrid", "paligemma-3b": "vlm",
     "seamless-m4t-medium": "audio",
 }

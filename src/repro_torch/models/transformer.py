@@ -1,13 +1,14 @@
-"""The decoder of the dense family (the port of ``repro.models.transformer``).
+"""The decoder of the dense and ssm families (the port of
+``repro.models.transformer``).
 
 Layer stacking keeps the JAX package's param layout: ``prelude`` (explicit
 leading layers), ``blocks`` (the repeating pattern period, each leaf stacked
 on a leading group axis) and ``coda`` (the remainder).  The JAX package
 drives ``blocks`` with ``lax.scan``; here a Python loop indexes the group
 axis.  The layout is what makes the flat column order match the
-reference's.  Only ``family == "dense"`` is ported; the other families raise
-``NotImplementedError`` naming their ROADMAP item.  Decoding is not ported
-(ROADMAP Queue A item 7, serving).
+reference's.  The ``dense`` and ``ssm`` families are ported; the other
+families raise ``NotImplementedError`` naming their ROADMAP item.  Decoding
+is not ported (ROADMAP Queue A item 7, serving).
 """
 from __future__ import annotations
 
@@ -17,17 +18,17 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import ssm as S
 from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 
+_PORTED_FAMILIES = ("dense", "ssm")
 _UNPORTED_FAMILIES = {
-    "ssm": "ROADMAP Queue A item 6: the ssm family (mamba2), with kernel "
-           "Queue B item 1 (ssd_chunk)",
     "moe": "ROADMAP Queue A item 6: the moe family, with kernel Queue B "
            "item 2 (moe_router)",
-    "hybrid": "ROADMAP Queue A item 6: the hybrid family (recurrentgemma), "
-              "with kernel Queue B item 1 (ssd_chunk)",
+    "hybrid": "ROADMAP Queue A item 6: the hybrid family (recurrentgemma, "
+              "models/rglru.py)",
     "vlm": "ROADMAP Queue A item 6: the vlm family (paligemma)",
     "encdec": "ROADMAP Queue A item 6: the encdec/audio family",
     "audio": "ROADMAP Queue A item 6: the encdec/audio family",
@@ -35,8 +36,8 @@ _UNPORTED_FAMILIES = {
 
 
 def check_family(arch_id: str, family: str) -> None:
-    """Raise unless ``family`` is one the port runs (dense)."""
-    if family != "dense":
+    """Raise unless ``family`` is one the port runs (dense, ssm)."""
+    if family not in _PORTED_FAMILIES:
         why = _UNPORTED_FAMILIES.get(family, "ROADMAP Queue A item 6")
         raise NotImplementedError(
             f"{arch_id}: the {family!r} family is not ported to PyTorch "
@@ -50,6 +51,8 @@ def check_family(arch_id: str, family: str) -> None:
 
 def pattern(cfg: ModelConfig) -> Tuple[str, ...]:
     check_family(cfg.arch_id, cfg.family)
+    if cfg.family == "ssm":
+        return ("ssm",)
     if cfg.attn_pattern == "local_global":
         return ("attn_local", "attn")
     if cfg.attn_pattern == "local":
@@ -74,6 +77,8 @@ def init_layer(gen: torch.Generator, cfg: ModelConfig, kind: str) -> Params:
     p: Params = {"ln1": L.init_rmsnorm(cfg)}
     if kind in ("attn", "attn_local"):
         p["attn"] = L.init_attention(gen, cfg)
+    elif kind == "ssm":
+        p["ssm"] = S.init_ssm(gen, cfg)
     has_ffn = cfg.d_ff > 0
     if has_ffn:
         p["ln2"] = L.init_rmsnorm(cfg)
@@ -96,8 +101,11 @@ def apply_layer(cfg: ModelConfig, p: Params, kind: str, x: torch.Tensor,
                 positions: torch.Tensor) -> torch.Tensor:
     """Full-sequence (train/prefill) layer."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
-    y = L.multihead_attention(cfg, p["attn"], h, _attn_spec(cfg, kind),
-                              positions)
+    if kind == "ssm":
+        y = S.ssm_forward(cfg, p["ssm"], h)
+    else:
+        y = L.multihead_attention(cfg, p["attn"], h, _attn_spec(cfg, kind),
+                                  positions)
     if cfg.post_norm:
         y = L.rms_norm(y, p["ln1_post"], cfg.norm_eps)
     x = x + y

@@ -251,7 +251,7 @@ def test_run_lm_federation_defaults_to_the_card():
     (lambda: T_LW.LMRunConfig(use_kernel=True), 6),
     (lambda: T_LW.run_lm_federation(_mech(), _cfg(), T_LW.LMRunConfig(),
                                     resume_from="snap"), 3),
-    (lambda: T_R.get_config("mamba2-2.7b"), 6),
+    (lambda: T_R.get_config("recurrentgemma-2b"), 6),
     (lambda: T_R.get_smoke_config("kimi-k2-1t-a32b"), 6),
     (lambda: T_R.get_config("paligemma-3b"), 6),
     (lambda: T_LW.init_fleet(dataclasses.replace(_cfg(), family="moe"), 2,
