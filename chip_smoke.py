@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port of DySTop on one card: the simulation plane
-and the LM fleet over two model families (dense: smollm-135m; ssm:
-mamba2-2.7b).
+"""Drive the PyTorch/CUDA port of DySTop on one card: the simulation plane,
+the LM fleet over two model families (dense: smollm-135m; ssm:
+mamba2-2.7b), and serving (grok-1-314b, the moe family, at full width).
 
     python3 chip_smoke.py            # from the repository root
 
 Phases (any failure raises, and the script exits nonzero with no result):
 
-1. print the card's name and power limit; build the four CUDA kernels from
+1. print the card's name and power limit; build the five CUDA kernels from
    ``src/repro_torch/kernels/csrc`` (one ``nvcc`` per source, in parallel);
 2. hold each kernel against its plain PyTorch version on the card, at the
    main path's shapes (N = 100 workers, P = 6,922 parameters): the Eq. 4
@@ -79,12 +79,38 @@ Phases (any failure raises, and the script exits nonzero with no result):
    version and its bound (no single PyTorch call computes it);
 14. run the mamba2 smoke geometry for 9 rounds with 4 workers (seq 64 over
    chunk 32) on the card and on the CPU: control plane identical,
-   ``loss_global`` within 2e-2.
+   ``loss_global`` within 2e-2;
+15. hold the ``moe_router`` kernel against its plain version on the card:
+   (T, E, k) = (8, 8, 2) (the serving path's decode shape), (4096, 8, 2),
+   (4096, 384, 8) (kimi-k2's experts) and a ragged T = 300, each with rows
+   of all-equal logits, of duplicated maxima and of +-1e4 — ids identical,
+   gates within 1e-6 and finite;
+16. zero the launch counters and serve grok-1-314b at full width and 4 of
+   its 64 layers: ``replace(grok_1_314b.get_config(), n_layers=4)`` drawn
+   on the card from a CUDA generator, ``ServeEngine(batch_slots=8,
+   max_len=512, seed=0, device="cuda")`` under ``traffic.drive`` on the
+   wall clock over ``ARRIVAL_PRESETS["steady"]`` (Poisson 6 req/s, 24
+   requests, prompts 4-24, generations 8-32, greedy, seed 11).  Every
+   request must finish with its ``max_new_tokens`` tokens, every tick's
+   logits be finite, ``moe_router`` launch once per MoE layer per tick and
+   flash_attention, ssd_chunk, aggregate and fused_sgd not at all.  Reports
+   tokens/s, TTFT and per-token latency p50/p99, occupancy, ms per tick,
+   peak memory, init wall, and the card's busy share over a profiled second
+   drive of the same requests;
+17. time ``moe_router`` at (8, 8, 2) and (4096, 384, 8) beside its plain
+   version and its bound (T E 4 + T k 8 bytes over 3.35 TB/s; no single
+   PyTorch call computes it);
+18. serve the same 8 greedy requests from the same parameters through the
+   engine on the card and on the CPU, on the smoke geometries of grok,
+   smollm-135m and mamba2-2.7b: a stream may leave the CPU's only at a step
+   where the CPU's top-2 logit gap is under ``SERVE_CARD_CPU_TOL`` (such
+   steps are counted), and the card's logits, teacher-forced on the CPU's
+   streams, must be within that tolerance of the CPU's.
 
 Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
-``{"mamba2": ...}``, ``{"kernels": [...]}`` and ``{"sim": {...}}`` lines,
-the card's name and power limit and, as the last line, ``{"ok": true,
-"device": {...}}``.
+``{"mamba2": ...}``, ``{"serving": ...}``, ``{"kernels": [...]}`` and
+``{"sim": {...}}`` lines, the card's name and power limit and, as the last
+line, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -102,6 +128,7 @@ F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 N_WORKERS, REPS = 100, 60
 LM_CARD_CPU_TOL = 2e-2             # loss_global, card vs CPU, bf16 smoke run
+SERVE_CARD_CPU_TOL = 0.25          # logits, card vs CPU, bf16 smoke serving
 
 
 def check(ok, msg: str) -> None:
@@ -415,6 +442,98 @@ def lm_card_vs_cpu(mech, cfg, label: str) -> float:
     return gap
 
 
+def router_logits(gen, t: int, e: int, dev):
+    """Random (T, E) logits with rows of all-equal logits, of duplicated
+    maxima and of +-1e4 at the top."""
+    import torch
+    x = torch.randn((t, e), generator=gen) * 3
+    x[0] = 1.0
+    x[1] = -5.0
+    x[1, [1, e - 1]] = 2.0
+    x[2, : e // 2] = 1e4
+    x[2, e // 2:] = -1e4
+    x[3, -1] = float(x[3].max()) + 1.0
+    x[3, :2] = x[3, -1]
+    return x.to(dev)
+
+
+def router_cost(t: int, e: int, k: int):
+    """Bytes: the f32 logits read once, gates (f32) and ids (i32) written
+    once; its compares are far below any unit's rate."""
+    return bound(4.0 * t * e + 8.0 * t * k, 0.0)
+
+
+def serve_requests(cfg, n: int, seed: int):
+    from repro_torch.serving import TrafficConfig, generate_requests
+    return generate_requests(TrafficConfig(n_requests=n, prompt_len=(4, 12),
+                                           gen_len=(8, 16), seed=seed),
+                             cfg.vocab_size)
+
+
+def teacher_forced(cfg, params, prompt, out, dev):
+    """Logits (len(out), V) for each generated token of a request: the
+    engine feeds the prompt, its last token again, then the stream."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.models import registry as R
+    from repro_torch.models import transformer as T
+    seq = np.concatenate([prompt, prompt[-1:], out[:-1]]).astype(np.int64)
+    cache = R.init_decode_cache(cfg, ShapeSpec("tf", len(seq), 1, "decode"),
+                                dev)
+    with torch.no_grad():
+        logits, _ = T.prefill_cache(cfg, params, cache,
+                                    torch.from_numpy(seq)[None].to(dev))
+    return logits[0, len(prompt):, :cfg.vocab_size].float().cpu()
+
+
+def serve_card_vs_cpu(cfg, label: str) -> dict:
+    """The same params and 8 greedy requests through the engine on the card
+    and on the CPU.  A stream may leave the CPU's only where the CPU's top-2
+    gap is under ``SERVE_CARD_CPU_TOL``; the card's logits teacher-forced on
+    the CPU's streams must be within it.  Returns the counts and gaps."""
+    import numpy as np
+    import torch
+    from repro_torch.models import registry as R
+    from repro_torch.serving import ServeEngine
+    from repro_torch.tree import tree_map
+    params = R.init_params(cfg, torch.Generator().manual_seed(0))
+    card_params = tree_map(lambda t: t.to("cuda"), params)
+    reqs = serve_requests(cfg, 8, 21)
+    outs = {}
+    for dev, p in (("cuda", card_params), ("cpu", params)):
+        eng = ServeEngine(cfg, p, batch_slots=4, max_len=64, device=dev)
+        for r in reqs:
+            eng.submit(r.prompt, r.gen)
+        outs[dev] = eng.run()
+    near_ties, max_gap, tf_err = 0, 0.0, 0.0
+    for rid, r in enumerate(reqs):
+        want = np.asarray(outs["cpu"][rid])
+        got = np.asarray(outs["cuda"][rid])
+        check(len(got) == len(want) == r.gen.max_new_tokens,
+              f"{label}: request {rid} has {len(got)} tokens on the card, "
+              f"{len(want)} on the CPU")
+        cpu_l = teacher_forced(cfg, params, r.prompt, want, "cpu")
+        card_l = teacher_forced(cfg, card_params, r.prompt, want, "cuda")
+        tf_err = max(tf_err, float((card_l - cpu_l).abs().max()))
+        diff = np.nonzero(got != want)[0]
+        if len(diff):
+            top2 = torch.sort(cpu_l[diff[0]]).values[-2:]
+            gap = float(top2[1] - top2[0])
+            check(gap < SERVE_CARD_CPU_TOL,
+                  f"{label}: request {rid} leaves the CPU's stream at step "
+                  f"{diff[0]}, where the CPU's top-2 gap is {gap}")
+            near_ties += 1
+            max_gap = max(max_gap, gap)
+    check(tf_err <= SERVE_CARD_CPU_TOL,
+          f"{label}: teacher-forced logits, card vs CPU, differ by {tf_err}")
+    print(f"serving {label} card vs CPU: {len(reqs)} requests, "
+          f"{near_ties} streams leave the CPU's at a near tie, "
+          f"teacher-forced max |logit gap| {tf_err:.3e}", flush=True)
+    return {"requests": len(reqs), "near_tie_streams": near_ties,
+            "largest_tie_gap": max_gap, "teacher_forced_max_abs_err": tf_err}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -433,6 +552,12 @@ def main() -> int:
     from repro_torch.kernels import flash_attention as FA
     from repro_torch.kernels import fused_sgd as FSGD
     from repro_torch.kernels import ssd_chunk as SC
+    from repro_torch.configs import grok_1_314b
+    from repro_torch.kernels import moe_router as MR
+    from repro_torch.models import registry as R
+    from repro_torch.serving import (ARRIVAL_PRESETS, ServeEngine, drive,
+                                     generate_requests)
+    from repro_torch.tree import tree_leaves
 
     torch.backends.cuda.matmul.allow_tf32 = False   # IEEE f32 everywhere
     torch.backends.cudnn.allow_tf32 = False
@@ -794,6 +919,115 @@ def main() -> int:
 
     # ---- 14. the card and the CPU agree on the mamba2 smoke geometry -------
     m_gap = lm_card_vs_cpu(lm_mech, mamba2_2_7b.get_smoke_config(), "mamba2")
+    torch.cuda.empty_cache()
+
+    # ---- 15. the moe_router kernel against its plain version --------------
+    router_err = 0.0
+    for t_, e_, k_ in ((8, 8, 2), (4096, 8, 2), (4096, 384, 8), (300, 8, 2)):
+        x = router_logits(gen, t_, e_, dev)
+        gates, ids = MR.moe_router(x, k_)
+        p_gates, p_ids = MR.moe_router_plain(x, k_)
+        torch.cuda.synchronize()
+        check(torch.equal(ids, p_ids), f"moe_router ({t_}, {e_}, {k_}): ids "
+              f"differ from the plain version's")
+        check(bool(torch.isfinite(gates).all()),
+              f"moe_router ({t_}, {e_}, {k_}): non-finite gates")
+        err = float((gates - p_gates).abs().max())
+        check(err <= 1e-6, f"moe_router ({t_}, {e_}, {k_}): |err| {err}")
+        router_err = max(router_err, err)
+        print(f"moe_router ({t_}, {e_}, {k_}): ids identical, max |gate err| "
+              f"{err:.3e}", flush=True)
+
+    # ---- 16. serving grok-1-314b at full width, through the kernels -------
+    for mod in (AGG, FSGD, FA, SC, MR):
+        mod.launches = 0
+    g_cfg = dataclasses.replace(grok_1_314b.get_config(), n_layers=4)
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_params = R.init_params(g_cfg, torch.Generator(dev).manual_seed(0))
+    torch.cuda.synchronize()
+    g_init_wall = time.perf_counter() - t0
+    g_init_peak = torch.cuda.max_memory_allocated()
+    g_reqs = generate_requests(ARRIVAL_PRESETS["steady"], g_cfg.vocab_size)
+    g_eng = ServeEngine(g_cfg, g_params, batch_slots=8, max_len=512, seed=0,
+                        device="cuda")
+    finite, step_s = [], []
+    step = g_eng.step
+
+    def timed_step():
+        t1 = time.perf_counter()
+        events = step()
+        finite.append(torch.isfinite(g_eng.last_logits).all())
+        step_s.append(time.perf_counter() - t1)
+        return events
+
+    g_eng.step = timed_step
+    t0 = time.perf_counter()
+    g_rep = drive(g_eng, g_reqs)
+    torch.cuda.synchronize()
+    g_wall = time.perf_counter() - t0
+    g_peak = torch.cuda.max_memory_allocated()
+    g_ticks = g_eng.t
+    g_launches = {"moe_router": MR.launches, "flash_attention": FA.launches,
+                  "ssd_chunk": SC.launches, "aggregate": AGG.launches,
+                  "fused_sgd": FSGD.launches}
+    check(g_rep.n_finished == len(g_reqs) == 24,
+          f"grok served {g_rep.n_finished} of {len(g_reqs)} requests")
+    for rid, r in enumerate(g_reqs):
+        check(len(g_rep.outputs[rid]) == r.gen.max_new_tokens,
+              f"grok request {rid}: {len(g_rep.outputs[rid])} tokens of "
+              f"{r.gen.max_new_tokens}")
+    check(bool(torch.stack(finite).all()), "grok logits not finite")
+    check(g_launches["moe_router"] == g_cfg.n_layers * g_ticks,
+          f"moe_router launched {g_launches['moe_router']} times in "
+          f"{g_ticks} ticks of {g_cfg.n_layers} MoE layers")
+    check(all(g_launches[k] == 0 for k in ("flash_attention", "ssd_chunk",
+                                           "aggregate", "fused_sgd")),
+          f"a kernel off the serving path launched: {g_launches}")
+    g_tick_ms = sum(step_s) / g_ticks * 1e3
+    print(f"grok serving (4 layers): {g_rep.n_finished} requests, "
+          f"{g_rep.total_tokens} tokens in {g_rep.makespan_s:.2f} s "
+          f"({g_rep.tokens_per_sec:.1f} tok/s), {g_ticks} ticks at "
+          f"{g_tick_ms:.2f} ms, launches {g_launches}, init "
+          f"{g_init_wall:.2f} s, peak {g_peak / 1e9:.2f} GB", flush=True)
+    prof_rep = []
+
+    def second_drive():
+        eng = ServeEngine(g_cfg, g_params, batch_slots=8, max_len=512,
+                          seed=0, device="cuda")
+        t1 = time.perf_counter()
+        prof_rep.append(drive(eng, g_reqs))
+        torch.cuda.synchronize()
+        prof_rep.append(time.perf_counter() - t1)
+
+    g_busy, g_top, g_extra = device_profile(second_drive)
+    check(prof_rep[0].outputs == g_rep.outputs,
+          "the profiled drive served other tokens")
+
+    # ---- 17. moe_router timed at the path's shape and kimi's --------------
+    router_rows = []
+    for t_, e_, k_ in ((8, 8, 2), (4096, 384, 8)):
+        x = router_logits(gen, t_, e_, dev)
+        rb_ms, rb_by = router_cost(t_, e_, k_)
+        router_rows.append({
+            "shape": [t_, e_, k_],
+            "ms": device_ms(lambda: MR.moe_router(x, k_)),
+            "plain_ms": device_ms(lambda: MR.moe_router_plain(x, k_)),
+            "call_ms": call_ms(lambda: MR.moe_router(x, k_)),
+            "bound_ms": rb_ms, "bound_by": rb_by, "library_ms": None})
+        print(f"moe_router at ({t_}, {e_}, {k_}): "
+              f"{router_rows[-1]['ms']:.4f} ms, plain "
+              f"{router_rows[-1]['plain_ms']:.4f} ms, bound {rb_ms:.6f} ms "
+              f"({rb_by})", flush=True)
+    del g_eng, g_params
+    torch.cuda.empty_cache()
+
+    # ---- 18. the card and the CPU agree on serving -------------------------
+    serve_gaps = {label: serve_card_vs_cpu(c, label) for label, c in (
+        ("grok", grok_1_314b.get_smoke_config()),
+        ("smollm", smollm_135m.get_smoke_config()),
+        ("mamba2", mamba2_2_7b.get_smoke_config()))}
 
     top_agg, top_sgd = agg_rows[0], sgd_rows[0]
     kernels = [
@@ -837,6 +1071,16 @@ def main() -> int:
          "plain_ms": ssd_row["plain_ms"], "bound_ms": ssd_row["bound_ms"],
          "bound_by": ssd_row["bound_by"], "library_ms": None,
          "call_ms": ssd_row["call_ms"]},
+        {"name": "moe_router", "route": "cuda",
+         "source": "src/repro_torch/kernels/csrc/moe_router.cu",
+         "replaces": "src/repro/kernels/moe_router.py:49",
+         "launches": g_launches["moe_router"], "max_abs_err": router_err,
+         "shape": {"T_E_k": router_rows[0]["shape"]},
+         "ms": router_rows[0]["ms"], "kernel_ms": router_rows[0]["ms"],
+         "plain_ms": router_rows[0]["plain_ms"],
+         "bound_ms": router_rows[0]["bound_ms"],
+         "bound_by": router_rows[0]["bound_by"], "library_ms": None,
+         "call_ms": router_rows[0]["call_ms"], "kimi": router_rows[1]},
     ]
     print(json.dumps({"aggregate_shapes": agg_rows}))
     print(json.dumps({"fused_sgd_shapes": sgd_rows}))
@@ -885,6 +1129,25 @@ def main() -> int:
         "max_memory_allocated_bytes": m_peak, **m_busy,
         "card_vs_cpu_loss_gap": m_gap, "ssd_chunk": ssd_row,
         "aggregate": m_agg_row}}))
+    print(json.dumps({"serving": {
+        "config": "grok-1-314b get_config() at n_layers=4 (of 64), "
+                  "ServeEngine(batch_slots=8, max_len=512, seed=0), "
+                  "ARRIVAL_PRESETS['steady'] on the wall clock",
+        "params": sum(t.numel() for t in tree_leaves(R.init_params(
+            g_cfg, None))),
+        "init_wall_s": g_init_wall, "init_peak_bytes": g_init_peak,
+        "max_memory_allocated_bytes": g_peak, "drive_wall_s": g_wall,
+        "ticks": g_ticks, "ms_per_tick": g_tick_ms,
+        "step_wall_s": sum(step_s), "launches": g_launches,
+        **{k: v for k, v in dataclasses.asdict(g_rep).items()
+           if k not in ("outputs", "finish_order")},
+        "profiled_drive_wall_s": prof_rep[1],
+        "profiled_makespan_s": prof_rep[0].makespan_s,
+        "device_busy_s": g_busy,
+        "device_busy_share": (None if g_busy is None
+                              else g_busy / prof_rep[1]),
+        "device_top_kernels": g_top, **g_extra,
+        "card_vs_cpu": serve_gaps, "moe_router": router_rows}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"sim": {
         "config": "SimConfig() defaults, DySTop(V=10.0, t_thre=20)",

@@ -83,6 +83,9 @@ class ModelConfig:
     def q_per_kv(self) -> int:
         return self.n_heads // max(self.n_kv_heads, 1)
 
+    def is_moe_layer(self, layer_idx: int) -> bool:
+        return self.moe is not None and layer_idx >= self.moe.first_dense_layers
+
     def layer_kind(self, layer_idx: int) -> str:
         """What block does layer `layer_idx` run? attn|attn_local|rglru|ssm."""
         if self.family == "ssm":

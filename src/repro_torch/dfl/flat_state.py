@@ -16,12 +16,12 @@ are the jax leaf order.  An LM fleet is resident as two buffers, params
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Any, Dict, Iterable, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.tree import tree_from_paths, tree_paths
+from repro_torch.tree import tree_from_paths, tree_map, tree_paths
 
 Params = Dict[str, torch.Tensor]
 
@@ -64,6 +64,34 @@ def from_reference(stacked_np: Dict[str, np.ndarray], device
     buf, spec = flatten_stacked({k: torch.tensor(np.asarray(v))
                                  for k, v in stacked_np.items()})
     return buf.to(device), spec
+
+
+def tensor_from_reference(leaf) -> torch.Tensor:
+    """A numpy leaf of the JAX package as a tensor of the same dtype, bit
+    for bit: bf16 (``ml_dtypes``) goes through f32, which holds it
+    exactly."""
+    arr = np.asarray(leaf)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.astype(np.float32)).to(torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def params_from_reference(items: Iterable[Tuple[tuple, np.ndarray]], device
+                          ) -> Any:
+    """One model's params from the JAX package's ``(path, numpy leaf)``
+    pairs (paths as tuples of dict keys and list indices) -> this port's
+    nested tree on ``device``, bit for bit, dtypes included."""
+    return tree_from_paths((path, tensor_from_reference(leaf).to(device))
+                           for path, leaf in items)
+
+
+def cache_from_reference(cache, device) -> Any:
+    """The JAX package's decode cache with numpy leaves (``pos``; per layer
+    KV rows and ``k_pos``, or SSM ``state`` and ``conv_tail``; ``blocks``
+    stacked on the group axis) -> this port's cache on ``device``, bit for
+    bit: the two packages share the layout, so a stream can be handed over
+    in its middle."""
+    return tree_map(lambda leaf: tensor_from_reference(leaf).to(device), cache)
 
 
 def unflatten(buf: torch.Tensor, spec: FlatSpec) -> Params:

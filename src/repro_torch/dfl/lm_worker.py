@@ -39,6 +39,7 @@ from repro_torch.core.planner import (HorizonPlanner, PlannedRound,
                                       bucket_key, chunk_spans, mix_is_train)
 from repro_torch.core.scenarios import resolve_scenario
 from repro_torch.data.synthetic import make_token_stream
+from repro_torch.device import resolve_device
 from repro_torch.dfl import flat_state as FS
 from repro_torch.dfl import worker as WK
 from repro_torch.dfl.network import (EdgeNetwork, NetworkConfig,
@@ -91,6 +92,7 @@ def init_fleet(cfg: ModelConfig, n_workers: int, optimizer: str = "adam",
     """All workers start from one w_0 (paper Thm. 1's shared init): drawn
     on the CPU from ``torch.Generator().manual_seed(seed)``, so the card and
     the CPU start alike, then raveled once into the resident buffers."""
+    R.check_trainable(cfg)
     opt = get_optimizer(optimizer, lr)
     params = R.init_params(cfg, torch.Generator().manual_seed(seed))
     params = tree_map(lambda leaf: leaf.to(device), params)
@@ -445,16 +447,6 @@ class LMHistory:
         return dataclasses.asdict(self)
 
 
-def _resolve_device(device: str) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"run_lm_federation: device {device!r} asked for, but PyTorch "
-            f"sees no CUDA card; pass device='cpu' to run the plain versions "
-            f"on the CPU")
-    return dev
-
-
 def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
                       resume_from: Optional[str] = None, *,
                       device: Optional[str] = None,
@@ -470,11 +462,13 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     buffers ``(fleet.pbuf, fleet.obuf)`` as numpy arrays
     (``flat_state.fleet_from_reference``).
     """
+    R.check_trainable(cfg)
     if resume_from is not None:
         raise NotImplementedError("run_lm_federation: resume_from "
                                   "(snapshots) is not ported to PyTorch yet "
                                   "— ROADMAP Queue A item 3")
-    dev = _resolve_device(device if device is not None else run.device)
+    dev = resolve_device(device if device is not None else run.device,
+                         "run_lm_federation")
     t_wall = time.time()
     n = run.n_workers
     rng =np.random.default_rng(run.seed)

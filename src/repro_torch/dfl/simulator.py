@@ -30,6 +30,7 @@ from repro_torch.core.scenarios import resolve_scenario
 from repro_torch.data.partition import dirichlet_partition
 from repro_torch.data.synthetic import (ClassificationData,
                                         make_classification, train_test_split)
+from repro_torch.device import resolve_device
 from repro_torch.dfl import flat_state as FS
 from repro_torch.dfl import worker as WK
 from repro_torch.dfl.network import (EdgeNetwork, NetworkConfig,
@@ -206,16 +207,6 @@ class History:
         return dataclasses.asdict(self)
 
 
-def _resolve_device(device: str) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"run_simulation: device {device!r} asked for, but PyTorch sees "
-            f"no CUDA card; pass device='cpu' to run the plain versions on "
-            f"the CPU")
-    return dev
-
-
 def run_simulation(mechanism: Mechanism, cfg: SimConfig,
                    data: Optional[ClassificationData] = None,
                    test: Optional[ClassificationData] = None,
@@ -235,7 +226,8 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
         raise NotImplementedError("run_simulation: resume_from (snapshots) "
                                   "is not ported to PyTorch yet — ROADMAP "
                                   "Queue A item 3")
-    dev = _resolve_device(device if device is not None else cfg.device)
+    dev = resolve_device(device if device is not None else cfg.device,
+                         "run_simulation")
     rng = np.random.default_rng(cfg.seed)
     t_wall = time.time()
 

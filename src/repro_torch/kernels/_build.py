@@ -22,7 +22,8 @@ from typing import Dict, Iterable, Tuple
 CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = (pathlib.Path(__file__).resolve().parents[3] / "build"
              / "repro_torch_kernels")
-SOURCES = ("aggregate", "flash_attention", "fused_sgd", "ssd_chunk")
+SOURCES = ("aggregate", "flash_attention", "fused_sgd", "moe_router",
+           "ssd_chunk")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -4,7 +4,7 @@ against the Pallas kernels, what ``chip_smoke.py`` holds the CUDA kernels
 against on the card, and what the autograd backward differentiates."""
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -68,3 +68,31 @@ def ssd_chunk_plain(Bc: torch.Tensor, Cc: torch.Tensor, cum_la: torch.Tensor,
     decay = la[..., :, None] - la[..., None, :]                 # (G, H, Q, Q)
     l_mat = torch.exp(torch.where(causal, decay, -torch.inf))
     return (scores[:, None] * l_mat) @ xbar.float()
+
+
+def moe_router_plain(logits: torch.Tensor, top_k: int
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused MoE router of ``repro.kernels.moe_router`` in f32, by the
+    Pallas kernel's own rule: softmax over the E experts (max subtracted,
+    ``exp``, divided by the sum), then ``top_k`` rounds that each take the
+    row's largest remaining probability, the lowest index winning a tie,
+    and mask it with -1.0; the chosen probabilities are renormalised by
+    ``max(sum, 1e-9)``.  ``logits`` (T, E) -> (gates (T, k) f32, ids (T, k)
+    int32).  Not ``torch.topk``: its tie order on CUDA is not specified."""
+    x = logits.float()
+    x = x - x.max(dim=-1, keepdim=True).values
+    probs = torch.exp(x)
+    probs = probs / probs.sum(dim=-1, keepdim=True)
+    cols = torch.arange(probs.shape[-1], device=probs.device)
+    remaining = probs
+    gates, ids = [], []
+    for _ in range(top_k):
+        g = remaining.max(dim=-1, keepdim=True).values
+        a = torch.where(remaining == g, cols, probs.shape[-1]).min(
+            dim=-1, keepdim=True).values
+        gates.append(g)
+        ids.append(a)
+        remaining = torch.where(cols == a, -1.0, remaining)
+    g = torch.cat(gates, dim=-1)
+    g = g / torch.clamp(g.sum(dim=-1, keepdim=True), min=1e-9)
+    return g, torch.cat(ids, dim=-1).to(torch.int32)

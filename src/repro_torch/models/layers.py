@@ -2,22 +2,26 @@
 
 Conventions, as in the JAX package:
   * params are nested dicts of tensors; init functions draw from one
-    ``torch.Generator`` on the CPU (the JAX package splits PRNG keys, so the
-    two inits differ; tests hand the reference's init over);
+    ``torch.Generator`` on its own device, each leaf cast to its dtype as it
+    is drawn (the JAX package splits PRNG keys, so the two inits differ;
+    tests hand the reference's init over).  ``gen=None`` builds the leaves
+    on the ``meta`` device: shapes and dtypes, nothing allocated;
   * activations run in ``cfg.dtype`` (bf16 by default), norm and softmax
     statistics in f32, logits in f32;
   * shapes: tokens (B, S); hidden (B, S, D); attention heads (B, S, H, hd).
 
 Attention on the self-attention train/prefill branch always goes through
 ``kernels.ops.flash_attention_diff`` (the CUDA kernel on the card, its plain
-version on the CPU).  The decode cache, cross-attention and a bidirectional
+version on the CPU); a decode step against a cache is einsums, as in the
+JAX package (no kernel there either).  Cross-attention and a bidirectional
 prefix are not ported and raise.  The sharding hints of the JAX package
 (``constrain``) are the identity on one card and are not ported.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional
+import math
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -32,15 +36,70 @@ Params = Dict[str, Any]
 # --------------------------------------------------------------------------- #
 
 
+class _PerOp(torch.autograd.Function):
+    """An activation whose forward is a chain of ops each rounded to x's
+    dtype (the JAX package's CPU backend evaluates them so) and whose
+    backward is the gradient of the smooth f32 formula: the chain's own
+    autograd would give 0 * inf = NaN where ``exp(-x)`` overflows."""
+
+    @staticmethod
+    def forward(ctx, x, chain, smooth):
+        ctx.save_for_backward(x)
+        ctx.smooth = smooth
+        return chain(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        with torch.enable_grad():
+            xf = x.detach().float().requires_grad_()
+            (gx,) = torch.autograd.grad(ctx.smooth(xf), xf, g.float())
+        return gx.to(x.dtype), None, None
+
+
+def _silu_chain(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.reciprocal(1 + torch.exp(-x))
+
+
+def _gelu_chain(x: torch.Tensor) -> torch.Tensor:
+    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype)
+    k = torch.tensor(0.044715, dtype=x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the JAX package's CPU backend evaluates it:
+    ``x * (1 / (1 + exp(-x)))``, each op rounded to x's dtype (bit for bit
+    in bf16; ``F.silu`` rounds once and differs in ~40% of bf16 values)."""
+    return _PerOp.apply(x, _silu_chain, F.silu)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (the tanh form) as the JAX package's CPU backend
+    evaluates it: ``x * (0.5 * (1 + tanh(c * (x + k * x^3))))`` with the
+    constants and every op rounded to x's dtype (bit for bit in bf16)."""
+    return _PerOp.apply(x, _gelu_chain,
+                        lambda v: F.gelu(v, approximate="tanh"))
+
+
 def _dtype(cfg: ModelConfig) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def _dense_init(gen: torch.Generator, shape, in_axis_size: int,
+def _device(gen: Optional[torch.Generator]) -> torch.device:
+    """Where init puts its leaves: the generator's device, or ``meta``."""
+    return torch.device("meta") if gen is None else gen.device
+
+
+def _dense_init(gen: Optional[torch.Generator], shape, in_axis_size: int,
                 dtype: torch.dtype) -> torch.Tensor:
-    scale = in_axis_size ** -0.5
-    return (torch.randn(shape, generator=gen, dtype=torch.float32)
-            * scale).to(dtype)
+    """N(0, 1/in_axis_size) drawn in f32 on the generator's device, scaled
+    in place and cast to ``dtype`` (one f32 leaf alive at a time)."""
+    if gen is None:
+        return torch.empty(shape, dtype=dtype, device="meta")
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
+    return w.mul_(in_axis_size ** -0.5).to(dtype)
 
 
 def padded_vocab(cfg: ModelConfig) -> int:
@@ -58,15 +117,17 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
 # --------------------------------------------------------------------------- #
 
 
-def init_rmsnorm(cfg: ModelConfig) -> torch.Tensor:
-    return torch.zeros((cfg.d_model,), dtype=torch.float32)
+def init_rmsnorm(cfg: ModelConfig, device=None) -> torch.Tensor:
+    return torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
 
 
-def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
+             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """RMS norm in f32, output in ``dtype`` (default x's)."""
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
-    return (normed * (1.0 + scale)).to(x.dtype)
+    return (normed * (1.0 + scale)).to(dtype or x.dtype)
 
 
 # --------------------------------------------------------------------------- #
@@ -122,37 +183,88 @@ def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                                                    w.shape[2])
 
 
+def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
+              spec: AttnSpec) -> torch.Tensor:
+    """Boolean mask (..., Sq, Sk), True = attend (``repro.models.layers.
+    _attn_mask``)."""
+    q = q_pos[..., :, None]
+    k = k_pos[..., None, :]
+    if spec.causal:
+        mask = k <= q
+        if spec.prefix_len:
+            mask = mask | ((q < spec.prefix_len) & (k < spec.prefix_len))
+    else:
+        mask = torch.ones_like(k <= q)
+    if spec.window is not None:
+        mask = mask & ((q - k) < spec.window)
+    return mask
+
+
+def cached_attention(cfg: ModelConfig, wo: torch.Tensor, q: torch.Tensor,
+                     k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                     softcap: Optional[float]) -> torch.Tensor:
+    """Queries (B, Sq, H, hd) against a cache's keys and values (B, W, Hk,
+    hd), then the out-projection: the JAX package's einsum path.  Scores
+    come out of the product in the cache's dtype, then f32 and scaled;
+    softcap, then the -1e30 mask; the probabilities are cast to v's dtype
+    before the product with v.  ``mask`` broadcasts to (B, Hk, Sq, G, W)."""
+    b, sq, _, hd = q.shape
+    qg = q.reshape(b, sq, cfg.n_kv_heads, cfg.q_per_kv, hd)
+    scores = torch.einsum("bsngk,btnk->bnsgt", qg, k).float() * hd ** -0.5
+    if softcap is not None:
+        scores = torch.tanh(scores / softcap) * softcap
+    scores = torch.where(mask, scores, -1e30)
+    probs = torch.softmax(scores, dim=-1).to(v.dtype)
+    out = torch.einsum("bnsgt,btnk->bsngk", probs, v)
+    return out.reshape(b, sq, cfg.n_heads * hd) @ wo.reshape(-1,
+                                                              wo.shape[-1])
+
+
 def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         spec: AttnSpec, positions: torch.Tensor,
                         kv_x: Optional[torch.Tensor] = None,
-                        cache: Optional[Params] = None) -> torch.Tensor:
-    """GQA self-attention over the full sequence (train/prefill), through
-    the flash kernel.  Query head h = kv_idx * G + g reads kv head
-    h // G, the order of the JAX package's grouped reshape."""
-    if cache is not None:
-        raise NotImplementedError(
-            "multihead_attention: the decode cache is not ported to PyTorch "
-            "yet — ROADMAP Queue A item 7 (serving)")
+                        cache: Optional[Params] = None,
+                        cache_pos=None
+                        ) -> Tuple[torch.Tensor, Optional[Params]]:
+    """GQA self-attention -> (y, new cache).  Query head h = kv_idx * G + g
+    reads kv head h // G, the order of the JAX package's grouped reshape.
+
+    Without a cache it runs over the full sequence (train/prefill) through
+    the flash kernel and returns no cache.  With ``cache`` {k, v (B, W, Hk,
+    hd)} it is one step of x (B, Sq, D) at ``cache_pos``: the new keys and
+    values are written into the cache's tensors in place at rows
+    ``cache_pos`` onward (clamped to fit, as ``dynamic_update_slice``
+    clamps), and attention spans the cache with rows past the step masked."""
     if kv_x is not None:
         raise NotImplementedError(
             "multihead_attention: cross-attention is not ported to PyTorch "
-            "yet — ROADMAP Queue A item 6 (the encdec/audio family) and "
-            "item 7 (serving)")
-    if spec.prefix_len:
-        raise NotImplementedError(
-            "multihead_attention: a bidirectional prefix is not ported to "
-            "PyTorch yet — ROADMAP Queue A item 6 (the vlm family)")
+            "yet — ROADMAP Queue A item 6 (the encdec/audio family)")
     b, s, _ = x.shape
     q = apply_rope(_project(x, p["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_project(x, p["wk"]), positions, cfg.rope_theta)
     v = _project(x, p["wv"])
+    if cache is not None:
+        w = cache["k"].shape[1]
+        start = min(max(int(cache_pos), 0), w - s)
+        cache["k"][:, start:start + s] = k.to(cache["k"].dtype)
+        cache["v"][:, start:start + s] = v.to(cache["v"].dtype)
+        k_pos = torch.arange(w, dtype=torch.int32, device=x.device)
+        mask = attn_mask(positions, k_pos.expand(b, w), spec)
+        mask = mask & (k_pos <= int(cache_pos))
+        y = cached_attention(cfg, p["wo"], q, cache["k"], cache["v"],
+                             mask[:, None, :, None, :], spec.softcap)
+        return y, {"k": cache["k"], "v": cache["v"]}
+    if spec.prefix_len:
+        raise NotImplementedError(
+            "multihead_attention: a bidirectional prefix is not ported to "
+            "PyTorch yet — ROADMAP Queue A item 6 (the vlm family)")
     # (B, S, H, hd) -> (B, H, S, hd) views; the kernel writes its output in
     # q's (B, S, H, hd) layout, so the swap back is free
     out = K.flash_attention_diff(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=spec.causal,
                                  window=spec.window, softcap=spec.softcap)
     out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * q.shape[-1])
-    return out @ p["wo"].reshape(-1, p["wo"].shape[-1])
+    return out @ p["wo"].reshape(-1, p["wo"].shape[-1]), None
 
 
 # --------------------------------------------------------------------------- #
@@ -171,15 +283,11 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 
 
 def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
-    """Gated MLP.  The activation and the gate product run in f32 with one
-    rounding to x's dtype, as XLA fuses them in the JAX package (rounding
-    after each op moves a bf16 loss by ~1e-3)."""
-    gate = (x @ p["w_gate"]).float()
-    # jax.nn.gelu defaults to the tanh approximation
-    act = (F.gelu(gate, approximate="tanh") if cfg.mlp_activation == "gelu"
-           else F.silu(gate))
-    h = (act * (x @ p["w_up"]).float()).to(x.dtype)
-    return h @ p["w_down"]
+    """Gated MLP, ``act(x @ w_gate) * (x @ w_up) @ w_down`` with every op
+    rounded to x's dtype, bit for bit the JAX package's on its CPU backend
+    (jax 0.9.0 does not fuse the chain into one f32 rounding)."""
+    act = gelu if cfg.mlp_activation == "gelu" else silu
+    return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
 
 
 # --------------------------------------------------------------------------- #

@@ -5,21 +5,21 @@ Training/prefill uses the chunked dual form: the quadratic attention-like
 product inside each chunk goes through ``kernels.ops.ssd_chunk_diff`` (the
 CUDA kernel on the card, its plain version on the CPU), and the running
 state crosses chunks in a Python loop (the JAX package's ``lax.scan``).
-Single B/C group (n_groups = 1), scalar-per-head A, depthwise causal conv
-over [x, B, C].  Decoding (``init_ssm_cache``, ``ssm_decode_step``) is not
-ported and raises.  The logical-axes trees of the JAX package are not
+Decode is the O(1)-per-token recurrent update (``init_ssm_cache``,
+``ssm_decode_step``), state in f32.  Single B/C group (n_groups = 1),
+scalar-per-head A, depthwise causal conv over [x, B, C].  The logical-axes trees of the JAX package are not
 ported (nothing on one card reads them).
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import ops as K
-from repro_torch.models.layers import _dense_init, _dtype
+from repro_torch.models.layers import _dense_init, _device, _dtype, silu
 
 Params = Dict[str, Any]
 
@@ -36,18 +36,18 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig) -> Params:
     d = cfg.d_model
     dt = _dtype(cfg)
     conv_dim = d_in + 2 * s.d_state
+    dev = _device(gen)
+    f32 = dict(dtype=torch.float32, device=dev)
     return {
         # fused in_proj -> [z (d_in), x (d_in), B (N), C (N), dt (H)]
         "w_in": _dense_init(gen, (d, 2 * d_in + 2 * s.d_state + H), d, dt),
         "conv_w": _dense_init(gen, (s.conv_width, conv_dim), s.conv_width,
                               dt),
-        "conv_b": torch.zeros((conv_dim,), dtype=dt),
-        "A_log": torch.log(torch.linspace(1.0, 16.0, H,
-                                          dtype=torch.float32)),
-        "D": torch.ones((H,), dtype=torch.float32),
-        "dt_bias": torch.full((H,), 0.01,
-                              dtype=torch.float32).expm1().log(),
-        "norm": torch.zeros((d_in,), dtype=torch.float32),
+        "conv_b": torch.zeros((conv_dim,), dtype=dt, device=dev),
+        "A_log": torch.log(torch.linspace(1.0, 16.0, H, **f32)),
+        "D": torch.ones((H,), **f32),
+        "dt_bias": torch.full((H,), 0.01, **f32).expm1().log(),
+        "norm": torch.zeros((d_in,), **f32),
         "w_out": _dense_init(gen, (d_in, d), d_in, dt),
     }
 
@@ -57,29 +57,28 @@ def _split_in(cfg: ModelConfig, h: torch.Tensor):
     return torch.split(h, [d_in, d_in, s.d_state, s.d_state, H], dim=-1)
 
 
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as the JAX package's CPU backend evaluates it:
-    ``x * (1 / (1 + exp(-x)))``, each op rounded to x's dtype (bit for bit
-    in bf16; ``F.silu`` rounds once and differs in ~40% of bf16 values)."""
-    return x * torch.reciprocal(1 + torch.exp(-x))
-
-
-def _causal_conv(x: torch.Tensor, w: torch.Tensor,
-                 b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv along time over the full sequence (zeros
-    before the first step), then SiLU.  x (B, S, C), w (W, C).  Every op
-    rounds to x's dtype, as the reference's does."""
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+                 tail: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """Depthwise causal conv along time, then SiLU -> (out, new tail).
+    x (B, S, C), w (W, C).  Zeros stand before the first step, or, in
+    decode, ``tail`` (B, W-1, C): the last W-1 inputs, returned updated.
+    Every op rounds to x's dtype, as the reference's does."""
     W = w.shape[0]
-    xp = F.pad(x, (0, 0, W - 1, 0))
+    if tail is None:
+        xp = F.pad(x, (0, 0, W - 1, 0))
+    else:
+        xp = torch.cat([tail.to(x.dtype), x], dim=1)
     out = xp[:, 0:x.shape[1], :] * w[0]
     for i in range(1, W):
         out = out + xp[:, i:i + x.shape[1], :] * w[i]
-    return _silu(out + b)
+    new_tail = xp[:, -(W - 1):, :] if W > 1 else None
+    return silu(out + b), new_tail
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
                 eps: float) -> torch.Tensor:
-    yf = y.float() * _silu(z.float())
+    yf = y.float() * silu(z.float())
     var = torch.mean(torch.square(yf), dim=-1, keepdim=True)
     return (yf * torch.rsqrt(var + eps) * (1.0 + scale)).to(y.dtype)
 
@@ -99,8 +98,8 @@ def ssm_forward(cfg: ModelConfig, p: Params,
 
     h = x_res @ p["w_in"]
     z, xin, Bm, Cm, dt = _split_in(cfg, h)
-    conv_out = _causal_conv(torch.cat([xin, Bm, Cm], dim=-1), p["conv_w"],
-                            p["conv_b"])
+    conv_out, _ = _causal_conv(torch.cat([xin, Bm, Cm], dim=-1),
+                               p["conv_w"], p["conv_b"])
     xin, Bm, Cm = torch.split(conv_out, [d_in, N, N], dim=-1)
 
     A = -torch.exp(p["A_log"])                                # (H,) negative
@@ -145,14 +144,47 @@ def ssm_forward(cfg: ModelConfig, p: Params,
     return (y @ p["w_out"].float()).to(x_res.dtype)
 
 
-def init_ssm_cache(cfg: ModelConfig, batch: int, dtype) -> Params:
-    raise NotImplementedError(
-        "init_ssm_cache: SSM decoding is not ported to PyTorch yet — "
-        "ROADMAP Queue A item 7 (serving)")
+def init_ssm_cache(cfg: ModelConfig, batch: int, dtype,
+                   device=None) -> Params:
+    """Decode state: the f32 SSM state (B, H, P, N) and the conv's last
+    W-1 inputs (B, W-1, d_in + 2N) in ``dtype``, all zeros."""
+    s, d_in, H = _dims(cfg)
+    return {
+        "state": torch.zeros((batch, H, s.head_dim, s.d_state),
+                             dtype=torch.float32, device=device),
+        "conv_tail": torch.zeros((batch, s.conv_width - 1,
+                                  d_in + 2 * s.d_state), dtype=dtype,
+                                 device=device),
+    }
 
 
 def ssm_decode_step(cfg: ModelConfig, p: Params, cache: Params,
-                    x_res: torch.Tensor):
-    raise NotImplementedError(
-        "ssm_decode_step: SSM decoding is not ported to PyTorch yet — "
-        "ROADMAP Queue A item 7 (serving)")
+                    x_res: torch.Tensor) -> Tuple[torch.Tensor, Params]:
+    """One recurrent step.  x_res (B, 1, D) -> (out (B, 1, D), cache), the
+    new state and conv tail written into ``cache``'s tensors in place."""
+    s, d_in, H = _dims(cfg)
+    Bsz = x_res.shape[0]
+    P_ = s.head_dim
+    N = s.d_state
+
+    h = x_res @ p["w_in"]
+    z, xin, Bm, Cm, dt = _split_in(cfg, h)
+    conv_out, new_tail = _causal_conv(torch.cat([xin, Bm, Cm], dim=-1),
+                                      p["conv_w"], p["conv_b"],
+                                      tail=cache["conv_tail"])
+    xin, Bm, Cm = torch.split(conv_out, [d_in, N, N], dim=-1)
+
+    A = -torch.exp(p["A_log"])
+    dtv = F.softplus(dt[:, 0].float() + p["dt_bias"])             # (B, H)
+    a = torch.exp(dtv * A)                                        # (B, H)
+    xh = xin[:, 0].reshape(Bsz, H, P_).float()
+    Bv = Bm[:, 0].float()                                         # (B, N)
+    Cv = Cm[:, 0].float()
+    state = (cache["state"] * a[:, :, None, None]
+             + torch.einsum("bhp,bn,bh->bhpn", xh, Bv, dtv))
+    y = torch.einsum("bn,bhpn->bhp", Cv, state) + p["D"][:, None] * xh
+    y = _gated_norm(y.reshape(Bsz, 1, d_in), z, p["norm"], cfg.norm_eps)
+    cache["state"].copy_(state)
+    cache["conv_tail"].copy_(new_tail)
+    # y is f32: the out-projection runs in f32, as in ssm_forward
+    return (y @ p["w_out"].float()).to(x_res.dtype), cache

@@ -252,7 +252,7 @@ def test_run_lm_federation_defaults_to_the_card():
     (lambda: T_LW.run_lm_federation(_mech(), _cfg(), T_LW.LMRunConfig(),
                                     resume_from="snap"), 3),
     (lambda: T_R.get_config("recurrentgemma-2b"), 6),
-    (lambda: T_R.get_smoke_config("kimi-k2-1t-a32b"), 6),
+    (lambda: T_R.get_smoke_config("seamless-m4t-medium"), 6),
     (lambda: T_R.get_config("paligemma-3b"), 6),
     (lambda: T_LW.init_fleet(dataclasses.replace(_cfg(), family="moe"), 2,
                              device="cpu"), 6)])
@@ -262,16 +262,28 @@ def test_lm_unported_paths_name_their_roadmap_item(make, item):
 
 
 def test_attention_decode_and_cross_branches_name_serving():
+    """The decode-cache branch runs (serving is ported): one step writes its
+    key and value rows at ``cache_pos`` in place; cross-attention still
+    raises, naming its ROADMAP item (held against the reference in
+    tests/test_torch_decode.py)."""
     from repro_torch.models import layers as T_L
     cfg = _cfg("float32")
     params = T_R.init_params(cfg, torch.Generator().manual_seed(0))
     p = params["blocks"]["p0"]["attn"]
     p = {k: v[0] for k, v in p.items()}
-    x = torch.zeros((1, 4, cfg.d_model))
-    pos = torch.zeros((1, 4), dtype=torch.int32)
-    for kw in (dict(cache={}), dict(kv_x=x)):
-        with pytest.raises(NotImplementedError, match="item 7 \\(serving\\)"):
-            T_L.multihead_attention(cfg, p, x, T_L.AttnSpec(), pos, **kw)
+    x = torch.randn((1, 1, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    pos = torch.full((1, 1), 3, dtype=torch.int32)
+    hd = cfg.resolved_head_dim
+    cache = {"k": torch.zeros((1, 8, cfg.n_kv_heads, hd)),
+             "v": torch.zeros((1, 8, cfg.n_kv_heads, hd))}
+    y, new = T_L.multihead_attention(cfg, p, x, T_L.AttnSpec(), pos,
+                                     cache=cache, cache_pos=3)
+    assert y.shape == (1, 1, cfg.d_model) and new["k"] is cache["k"]
+    written = cache["k"].abs().sum(dim=(0, 2, 3)) > 0
+    assert written.tolist() == [i == 3 for i in range(8)]
+    with pytest.raises(NotImplementedError, match="Queue A item 6"):
+        T_L.multihead_attention(cfg, p, x, T_L.AttnSpec(), pos, kv_x=x)
 
 
 @pytest.mark.parametrize("kw", [

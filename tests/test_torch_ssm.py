@@ -251,12 +251,20 @@ def test_init_and_configs_match_reference():
 
 
 def test_ssm_decoding_and_ragged_seq_raise():
+    """Decoding is ported (serving): the cache and one step run, the state
+    stays f32 and the step writes it in place; a ragged seq still raises
+    (held against the reference in tests/test_torch_decode.py)."""
     cfg = T_R.get_smoke_config(ARCH)
-    with pytest.raises(NotImplementedError, match="item 7 \\(serving\\)"):
-        T_S.init_ssm_cache(cfg, 1, torch.bfloat16)
-    with pytest.raises(NotImplementedError, match="item 7 \\(serving\\)"):
-        T_S.ssm_decode_step(cfg, {}, {}, torch.zeros((1, 1, cfg.d_model)))
+    cache = T_S.init_ssm_cache(cfg, 1, torch.bfloat16)
+    assert cache["state"].dtype == torch.float32
+    assert cache["conv_tail"].dtype == torch.bfloat16
     p = T_S.init_ssm(torch.Generator().manual_seed(0), cfg)
+    x = torch.randn((1, 1, cfg.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    out, new = T_S.ssm_decode_step(cfg, p, cache, x.to(torch.bfloat16))
+    assert out.shape == (1, 1, cfg.d_model) and out.dtype == torch.bfloat16
+    assert new is cache and bool(cache["state"].abs().sum() > 0)
+    assert bool(cache["conv_tail"][:, -1].abs().sum() > 0)
     with pytest.raises(ValueError, match="not divisible by chunk"):
         T_S.ssm_forward(cfg, p, torch.zeros((1, 48, cfg.d_model)))
 
