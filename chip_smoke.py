@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of DySTop on one card: the simulation plane,
 the LM fleet over two model families (dense: smollm-135m; ssm:
-mamba2-2.7b), and serving (grok-1-314b, the moe family, at full width).
+mamba2-2.7b), serving (grok-1-314b, the moe family, at full width), and the
+fleet mesh (``mesh_shards`` = 2 and 4 gloo ranks sharing the card) on the
+simulation plane and the LM fleet.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -107,10 +109,38 @@ Phases (any failure raises, and the script exits nonzero with no result):
    steps are counted), and the card's logits, teacher-forced on the CPU's
    streams, must be within that tolerance of the CPU's.
 
+Phases 19-21 run the fleet mesh: for S in (2, 4) the script spawns S ranks
+(``launch.mesh.spawn``; gloo, every rank on ``cuda:0``) that run phases 19
+and 20, and at S = 2 phase 21; each check raises inside its rank, which
+fails the whole call.
+
+19. hold each mesh twin against its plain version on the whole buffer:
+   ``aggregate_rows_sharded`` and ``aggregate_rows_cols_sharded`` over the
+   sim path's buckets (N = 100, P = 6,922, padding columns included) and,
+   at S = 2, ``aggregate_rows_sharded`` on the LM fleet's (8, P =
+   134,515,008) buffer at k = 2, to f32 atol and rtol 1e-5;
+   ``fused_sgd_sharded`` bit-identical to the unsharded kernel on the same
+   rows and within 1e-4 of the plain version.  Time, on each rank, the
+   per-shard ``aggregate`` launch (ranks in turn), the all-reduce and the
+   whole twin (host wall, ranks together), beside the unsharded kernel, the
+   plain version, ``matmul`` and the per-shard bound;
+20. zero the counters on each rank, run ``run_simulation(DySTop(V=10,
+   t_thre=20), SimConfig(mesh_shards=S))`` at the defaults, read them: every
+   rank must have launched ``aggregate`` and ``fused_sgd``, the control
+   plane must equal phase 3's exactly, ``acc_global`` be within 2e-2 of it
+   and every rank's final block finite;
+21. (S = 2) the LM fleet of phase 8 at 10 rounds with ``mesh_shards=2``,
+   against an unsharded 10-round run of the same config: control plane
+   identical, ``loss_global`` within rtol 1e-3, ``flash_attention`` and
+   ``aggregate`` launched on both ranks, the assembled fleet finite;
+   reports the wall, the all-reduce time per round and each rank's peak
+   memory.
+
 Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
-``{"mamba2": ...}``, ``{"serving": ...}``, ``{"kernels": [...]}`` and
-``{"sim": {...}}`` lines, the card's name and power limit and, as the last
-line, ``{"ok": true, "device": {...}}``.
+``{"mamba2": ...}``, ``{"serving": ...}``, ``{"mesh": ...}``,
+``{"kernels": [...]}`` (the three mesh twins as row 3) and ``{"sim":
+{...}}`` lines, the card's name and power limit and, as the last line,
+``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -127,6 +157,9 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
 F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
 BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 N_WORKERS, REPS = 100, 60
+MESH_SHARDS = (2, 4)               # gloo ranks sharing the one card
+MESH_ACC_TOL = 2e-2                # acc_global, sim mesh vs unsharded
+MESH_LOSS_RTOL = 1e-3              # loss_global, LM mesh vs unsharded
 LM_CARD_CPU_TOL = 2e-2             # loss_global, card vs CPU, bf16 smoke run
 SERVE_CARD_CPU_TOL = 0.25          # logits, card vs CPU, bf16 smoke serving
 
@@ -532,6 +565,496 @@ def serve_card_vs_cpu(cfg, label: str) -> dict:
           f"teacher-forced max |logit gap| {tf_err:.3e}", flush=True)
     return {"requests": len(reqs), "near_tie_streams": near_ties,
             "largest_tie_gap": max_gap, "teacher_forced_max_abs_err": tf_err}
+
+
+def sync(dev) -> None:
+    import torch
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def wall_ms(fn, dev, reps: int) -> float:
+    """Median host wall of ``fn`` over ``reps`` calls, each synchronised
+    before and after (a collective's time is the host's: gloo runs it)."""
+    times = []
+    for _ in range(reps):
+        sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        sync(dev)
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rank_serial(fn):
+    """Run ``fn`` on each rank in turn (barriers between), so that ranks
+    sharing one card time their kernels alone; returns this rank's result."""
+    import torch.distributed as dist
+    out = None
+    for r in range(dist.get_world_size()):
+        dist.barrier()
+        if dist.get_rank() == r:
+            out = fn()
+    dist.barrier()
+    return out
+
+
+def zero_counters() -> None:
+    from repro_torch.kernels import aggregate as AGG
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_sgd as FSGD
+    AGG.launches = AGG.launches_rows_sharded = AGG.launches_cols_sharded = 0
+    FSGD.launches = FSGD.launches_sharded = FA.launches = 0
+
+
+def read_counters() -> dict:
+    from repro_torch.kernels import aggregate as AGG
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import fused_sgd as FSGD
+    return {"aggregate": AGG.launches, "fused_sgd": FSGD.launches,
+            "flash_attention": FA.launches,
+            "aggregate_rows_sharded": AGG.launches_rows_sharded,
+            "aggregate_rows_cols_sharded": AGG.launches_cols_sharded,
+            "fused_sgd_sharded": FSGD.launches_sharded}
+
+
+def mesh_twin_rows(shd, W, X, block, seg, cid, reps: int, label: str) -> dict:
+    """Phase 19 for one twin at one shape: hold this rank's rows against the
+    plain version on the whole buffer (f32 atol and rtol 1e-5), then time
+    the per-shard launch (ranks in turn), the all-reduce and the whole twin
+    (ranks together), beside the unsharded kernel, its plain version and
+    ``matmul`` (rank 0)."""
+    import torch
+    from repro_torch.kernels import aggregate as AGG
+    dev = shd.device
+    lo, hi = seg
+    k, p = W.shape[0], X.shape[1]
+    if cid is None:
+        twin = lambda: AGG.aggregate_rows_sharded(W, block, shd, seg)
+        Wb = W[:, shd.home[0]:shd.home[1]].contiguous()
+        shard_in = (Wb, block)
+        part = torch.zeros((k, p), dtype=torch.float32, device=dev)
+        b_ms, b_by = agg_cost(k, Wb.cpu(), None, p, shd.block)
+        W_full = W[:, :shd.n_rows].contiguous()
+    else:
+        twin = lambda: AGG.aggregate_rows_cols_sharded(W, cid, block, shd,
+                                                       seg)
+        shard_in = None if hi == lo else (
+            W[lo:hi], torch.randn((cid.shape[0], p), device=dev))
+        part = torch.zeros((cid.shape[0], p), dtype=torch.float32,
+                           device=dev)
+        b_ms, b_by = ((None, None) if hi == lo else
+                      agg_cost(hi - lo, W[lo:hi].cpu(), None, p,
+                               cid.shape[0]))
+        W_full = W
+    got = twin()
+    want = AGG.aggregate_plain(W_full[lo:hi], X, cid)
+    sync(dev)
+    err = float((got - want).abs().max()) if hi > lo else 0.0
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5,
+                               msg=lambda m: f"{label}: {m}")
+    del got, want
+    ms = rank_serial(lambda: None if shard_in is None else device_ms(
+        lambda: AGG.aggregate(*shard_in), reps=reps))
+    row = {"shape": label, "rank": shd.rank, "seg": [lo, hi],
+           "max_abs_err": err, "shard_ms": ms,
+           "allreduce_ms": wall_ms(lambda: shd.psum(part), dev, reps),
+           "twin_ms": wall_ms(twin, dev, reps),
+           "shard_bound_ms": b_ms, "shard_bound_by": b_by}
+
+    def unsharded():
+        lib_cid = None if cid is None else cid.long()
+        return {"unsharded_ms": device_ms(
+                    lambda: AGG.aggregate(W_full, X, cid), reps=reps),
+                "plain_ms": device_ms(
+                    lambda: AGG.aggregate_plain(W_full, X, cid), reps=reps),
+                "library_ms": device_ms(
+                    (lambda: torch.matmul(W_full, X)) if cid is None else
+                    (lambda: torch.matmul(W_full, X.index_select(0, lib_cid))),
+                    reps=reps)}
+
+    row.update(rank_serial(lambda: unsharded() if shd.rank == 0 else {}))
+    return row
+
+
+def mesh_twins(plan: dict) -> dict:
+    """Phase 19 on this rank: every twin against its plain version at the
+    sim path's buckets (and at S = 2 on the LM fleet's buffer), timed at
+    the main path's commonest shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.dfl import flat_state as FS
+    from repro_torch.dfl import worker as WK
+    from repro_torch.kernels import aggregate as AGG
+    from repro_torch.kernels import fused_sgd as FSGD
+    from repro_torch.sharding.rules import FleetSharding
+    import torch.distributed as dist
+    n, p, reps = plan["n"], plan["P"], plan["reps"]
+    shd = FleetSharding.create(dist.get_world_size(), n, plan["device"])
+    dev = shd.device
+    gen = torch.Generator().manual_seed(4321)   # the same draws on each rank
+    X = torch.randn((n, p), generator=gen).to(dev)
+    block = shd.put_rows_padded(X)
+    buckets = plan["buckets"]
+
+    def ids(k):
+        return np.sort(torch.randperm(n, generator=gen)[:k].numpy())
+
+    errs = {"rows": 0.0, "cols": 0.0, "sgd_vs_kernel": 0.0, "sgd_vs_plain": 0.0}
+    for k in buckets:
+        rid = ids(k)
+        seg = shd.for_rows(rid)
+        W, _ = agg_case(gen, k, n, n, False, dev)
+        W = torch.from_numpy(WK.pad_w_cols(W.cpu().numpy(), shd.n_pad)).to(dev)
+        got = AGG.aggregate_rows_sharded(W, block, shd, seg)
+        want = AGG.aggregate_plain(W[seg[0]:seg[1], :n], X)
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+        errs["rows"] = max(errs["rows"], float((got - want).abs().max())
+                           if len(got) else 0.0)
+        for u in buckets:
+            W_sub, cid = agg_case(gen, k, u, n, True, dev)
+            got = AGG.aggregate_rows_cols_sharded(W_sub, cid, block, shd, seg)
+            want = AGG.aggregate_plain(W_sub[seg[0]:seg[1]], X, cid)
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            errs["cols"] = max(errs["cols"], float((got - want).abs().max())
+                               if len(got) else 0.0)
+    spec = FS.spec_of(WK.init_stacked(torch.Generator(), 1, plan["dim"],
+                                      plan["hidden"], 10))
+    steps, batch, lr = plan["steps"], plan["batch"], plan["lr"]
+    for k in plan["sgd_ks"]:
+        for with_losses in (True, False):
+            buf, xb, yb, active = sgd_case(gen, k, steps, batch, plan["dim"],
+                                           10, dev, spec.n_params)
+            a, b = shd.for_rows(ids(k))
+            got, g_loss = FSGD.fused_sgd_sharded(
+                buf[a:b], xb[a:b], yb[a:b], active[a:b], spec, lr,
+                with_losses)
+            ker, k_loss = FSGD.fused_sgd(buf, xb, yb, active, spec, lr,
+                                         with_losses)
+            pl, p_loss = FSGD.local_sgd_flat_fused(buf, xb, yb, active, spec,
+                                                   lr, with_losses)
+            sync(dev)
+            check(torch.equal(got, ker[a:b]) and torch.equal(g_loss,
+                                                             k_loss[a:b]),
+                  f"fused_sgd_sharded (k={k}) differs from the unsharded "
+                  f"kernel on rank {shd.rank}")
+            torch.testing.assert_close(got, pl[a:b], atol=1e-4, rtol=0)
+            torch.testing.assert_close(g_loss, p_loss[a:b], atol=1e-4, rtol=0)
+            errs["sgd_vs_plain"] = max(
+                errs["sgd_vs_plain"], float((got - pl[a:b]).abs().max())
+                if b > a else 0.0)
+    out = {"rank": shd.rank, "backend": shd.mesh.backend,
+           "device": str(dev), "max_abs_err": errs, "times": []}
+
+    # times at the sim path's commonest shapes
+    for k, u, col in plan["agg_top"]:
+        rid = ids(k)
+        seg = shd.for_rows(rid)
+        if col:
+            W, cid = agg_case(gen, k, u, n, True, dev)
+        else:
+            W, cid = agg_case(gen, k, n, n, False, dev)
+            W = torch.from_numpy(WK.pad_w_cols(W.cpu().numpy(),
+                                               shd.n_pad)).to(dev)
+        out["times"].append(mesh_twin_rows(
+            shd, W, X, block, seg, cid, reps,
+            f"sim k={k} u={u} {'cols' if col else 'rows'}"))
+    k = plan["sgd_top"]
+    buf, xb, yb, active = sgd_case(gen, k, steps, batch, plan["dim"], 10,
+                                   dev, spec.n_params)
+    a, b = shd.for_rows(ids(k))
+    args = (buf[a:b], xb[a:b], yb[a:b], active[a:b], spec, lr, False)
+    out["sgd_time"] = {
+        "k": k, "seg": [a, b], "rank": shd.rank,
+        "shard_ms": rank_serial(lambda: device_ms(
+            lambda: FSGD.fused_sgd_sharded(*args), reps=reps)
+            if b > a else None),
+        "shard_bound": sgd_cost(spec, active[a:b], b - a, steps, batch,
+                                False) if b > a else None,
+        **rank_serial(lambda: {
+            "unsharded_ms": device_ms(lambda: FSGD.fused_sgd(
+                buf, xb, yb, active, spec, lr, False), reps=reps),
+            "plain_ms": device_ms(lambda: FSGD.local_sgd_flat_fused(
+                buf, xb, yb, active, spec, lr, False), reps=reps)}
+            if shd.rank == 0 else {})}
+
+    lmt = plan.get("lm_twin")
+    if lmt is not None:        # the LM fleet's (8, P) buffer, drawn on dev
+        del X, block
+        lshd = FleetSharding.create(shd.n_shards, lmt["n"], plan["device"])
+        dgen = (torch.Generator(device=dev) if dev.type == "cuda"
+                else torch.Generator()).manual_seed(99)
+        Xl = torch.randn((lmt["n"], lmt["P"]), generator=dgen, device=dev)
+        lblock = lshd.put_rows_padded(Xl)
+        rid = np.asarray(lmt["row_ids"])
+        Wl = torch.rand((len(rid), lmt["n"]), generator=gen)
+        Wl = (Wl / Wl.sum(1, keepdim=True)).to(dev)
+        out["lm_time"] = mesh_twin_rows(
+            lshd, Wl, Xl, lblock, lshd.for_rows(rid), None, lmt["reps"],
+            f"lm k={len(rid)} P={lmt['P']} rows")
+        del Xl, lblock
+        if dev.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
+def mesh_sim(plan: dict) -> dict:
+    """Phase 20 on this rank: its share of ``run_simulation`` with
+    ``mesh_shards`` = the group's size, counters zeroed just before and
+    read just after; the final block must be finite."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl import worker as WK
+    from repro_torch.dfl.simulator import run_simulation
+    cfg = dataclasses.replace(plan["sim_cfg"],
+                              mesh_shards=dist.get_world_size())
+    dev = torch.device(plan["device"])
+    last = []
+    orig = WK.mega_round_step
+
+    def rec_mega(buf, *a, **kw):
+        last[:] = [buf]
+        return orig(buf, *a, **kw)
+
+    WK.mega_round_step = rec_mega
+    zero_counters()
+    sync(dev)
+    t0 = time.perf_counter()
+    try:
+        hist = run_simulation(DySTop(V=10.0, t_thre=20), cfg,
+                              device=plan["device"])
+    finally:
+        WK.mega_round_step = orig
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    return {"rank": dist.get_rank(), "wall_s": wall, "launches": launches,
+            "block_finite": bool(torch.isfinite(last[0]).all()),
+            "block_rows": last[0].shape[0],
+            "history": {**hist.to_dict(), "mesh_backend": hist.mesh_backend}}
+
+
+def mesh_lm(plan: dict) -> dict:
+    """Phase 21 on this rank: its share of the LM fleet run with
+    ``mesh_shards=2``; counters zeroed just before and read just after,
+    each all-reduce timed, rank 0's assembled fleet checked finite."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl import lm_worker as LW
+    from repro_torch.sharding.rules import FleetSharding
+    cfg, run = plan["lm"]
+    run = dataclasses.replace(run, mesh_shards=dist.get_world_size())
+    dev = torch.device(plan["device"])
+    times, sizes = [], []
+    orig = FleetSharding.psum
+
+    def timed_psum(self, x):
+        sync(self.device)
+        t0 = time.perf_counter()
+        out = orig(self, x)
+        sync(self.device)
+        times.append(time.perf_counter() - t0)
+        sizes.append(x.numel() * x.element_size())
+        return out
+
+    FleetSharding.psum = timed_psum
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    zero_counters()
+    sync(dev)
+    t0 = time.perf_counter()
+    try:
+        fleet, hist = LW.run_lm_federation(
+            DySTop(V=3.0, t_thre=10, max_neighbors=3), cfg, run,
+            device=plan["device"])
+    finally:
+        FleetSharding.psum = orig
+    sync(dev)
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    out = {"rank": dist.get_rank(), "wall_s": wall, "launches": launches,
+           "allreduce_s": sum(times), "allreduce_calls": len(times),
+           "allreduce_bytes": sum(sizes),
+           "peak_bytes": (torch.cuda.max_memory_allocated(dev)
+                          if dev.type == "cuda" else None),
+           "history": {**hist.to_dict(), "mesh_backend": hist.mesh_backend}}
+    if fleet is not None:
+        out["fleet_shape"] = [list(fleet.pbuf.shape), list(fleet.obuf.shape)]
+        out["fleet_finite"] = all_finite(fleet.pbuf) and all_finite(
+            fleet.obuf)
+    del fleet
+    return out
+
+
+def mesh_rank(plan: dict) -> list:
+    """One rank of phases 19-21; every rank's results, gathered."""
+    import torch.distributed as dist
+    out = {"twins": mesh_twins(plan), "sim": mesh_sim(plan)}
+    if plan.get("lm") is not None:
+        out["lm"] = mesh_lm(plan)
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
+def mesh_checks(n_sh: int, ranks: list, spawn_wall: float, hist, lm10_hist,
+                lm10_wall: float, lm_workers: int, lm_p: int) -> dict:
+    """Phases 19-21's checks on the ranks' results (phase 19's ran inside
+    the ranks): the sim mesh against phase 3's run ``hist``, the LM mesh
+    against the unsharded 10-round run; returns the ``{"mesh"}`` entry."""
+    import numpy as np
+    sim_ctrl = ("rounds", "sim_time", "comm_gb", "round_active",
+                "round_durations", "staleness_avg", "staleness_max")
+    # 19: every twin held against its plain version inside each rank
+    tw = [r["twins"] for r in ranks]
+    check(all(t["backend"] == "gloo" for t in tw),
+          f"mesh S={n_sh}: backends {[t['backend'] for t in tw]}")
+    print(f"phase 19, S={n_sh}: twins match their plain versions on "
+          f"every rank, max |err| "
+          f"{[t['max_abs_err'] for t in tw]}", flush=True)
+    # 20: the sim mesh against phase 3's unsharded run
+    sims = [r["sim"] for r in ranks]
+    for r in sims:
+        check(r["launches"]["aggregate"] > 0
+              and r["launches"]["fused_sgd"] > 0,
+              f"sim mesh S={n_sh} rank {r['rank']}: a kernel never "
+              f"launched: {r['launches']}")
+        check(r["block_finite"], f"sim mesh S={n_sh} rank {r['rank']}: "
+              f"the final block is not finite")
+    mh = sims[0]["history"]
+    check(mh["mesh_backend"] == "gloo",
+          f"sim mesh S={n_sh}: backend {mh['mesh_backend']}")
+    for f in sim_ctrl:
+        check(mh[f] == getattr(hist, f),
+              f"sim mesh S={n_sh}: {f} differs from phase 3's run")
+    acc_gap_m = float(np.max(np.abs(np.asarray(mh["acc_global"])
+                                    - np.asarray(hist.acc_global))))
+    check(acc_gap_m <= MESH_ACC_TOL,
+          f"sim mesh S={n_sh}: acc_global differs by {acc_gap_m}")
+    print(f"phase 20, S={n_sh}: control plane identical to phase 3, "
+          f"max |acc gap| {acc_gap_m:.2e}, launches "
+          f"{[r['launches'] for r in sims]}, rank walls "
+          f"{[round(r['wall_s'], 2) for r in sims]} s", flush=True)
+    run_out = {"spawn_wall_s": spawn_wall, "twins": tw,
+               "sim": {"acc_gap": acc_gap_m, "ranks": [
+                   {k_: r[k_] for k_ in ("rank", "wall_s", "launches",
+                                         "block_rows")} for r in sims],
+                   "history": {k_: mh[k_] for k_ in (
+                       "wall_s", "setup_wall_s", "plan_wall_s",
+                       "pack_wall_s", "stage_wall_s", "drain_wall_s",
+                       "eval_wall_s", "mesh_backend")},
+                   "acc_final": mh["acc_global"][-1]}}
+    if n_sh == 2:
+        # 21: the LM mesh against the unsharded 10-round run
+        lms = [r["lm"] for r in ranks]
+        for r in lms:
+            check(r["launches"]["flash_attention"] > 0
+                  and r["launches"]["aggregate"] > 0,
+                  f"LM mesh rank {r['rank']}: a kernel never launched: "
+                  f"{r['launches']}")
+        lh = lms[0]["history"]
+        for f in sim_ctrl:
+            check(lh[f] == getattr(lm10_hist, f),
+                  f"LM mesh: {f} differs from the unsharded run")
+        lg, lg1 = (np.asarray(lh["loss_global"]),
+                   np.asarray(lm10_hist.loss_global))
+        check(lg.shape == lg1.shape and np.isfinite(lg).all()
+              and np.allclose(lg, lg1, rtol=MESH_LOSS_RTOL, atol=0),
+              f"LM mesh loss_global {lg.tolist()} vs {lg1.tolist()}")
+        check(lms[0]["fleet_finite"], "LM mesh: the fleet is not finite")
+        check(lms[0]["fleet_shape"][0] == [lm_workers,
+                                           lm_p],
+              f"LM mesh fleet shape {lms[0]['fleet_shape']}")
+        rounds_m = lh["rounds"][-1]
+        print(f"phase 21: LM mesh {rounds_m} rounds, walls "
+              f"{[round(r['wall_s'], 2) for r in lms]} s (unsharded "
+              f"{lm10_wall:.2f} s), all-reduce "
+              f"{lms[0]['allreduce_s'] / rounds_m:.3f} s per round, "
+              f"peaks {[r['peak_bytes'] for r in lms]} B, loss "
+              f"{lg.tolist()} vs {lg1.tolist()}", flush=True)
+        run_out["lm"] = {
+            "loss_global": lg.tolist(),
+            "unsharded_loss_global": lg1.tolist(),
+            "max_loss_rel_gap": float(np.max(np.abs(lg - lg1)
+                                             / np.abs(lg1))),
+            "unsharded_wall_s": lm10_wall,
+            "unsharded_history": {k_: getattr(lm10_hist, k_) for k_ in (
+                "wall_s", "setup_wall_s", "drain_wall_s",
+                "eval_wall_s")},
+            "ranks": [{k_: r[k_] for k_ in (
+                "rank", "wall_s", "launches", "allreduce_s",
+                "allreduce_calls", "allreduce_bytes", "peak_bytes")}
+                for r in lms],
+            "allreduce_s_per_round": lms[0]["allreduce_s"] / rounds_m,
+            "history": {k_: lh[k_] for k_ in (
+                "wall_s", "setup_wall_s", "plan_wall_s", "pack_wall_s",
+                "stage_wall_s", "drain_wall_s", "eval_wall_s")}}
+    return run_out
+
+
+def mesh_kernel_rows(mesh_runs: dict) -> list:
+    """Row 3 of the kernel table (the three twins) for the ``{"kernels"}``
+    line, from phase 19's timings and phases 20-21's launch counts."""
+    def twin_launches(name):
+        return sum(r["launches"][name] for run_out in mesh_runs.values()
+                   for part in ("sim", "lm") if part in run_out
+                   for r in run_out[part]["ranks"])
+
+    def twin_entry(name, replaces, src, rows, err, extra):
+        """Row 3 of the kernel table from phase 19's S=2 timings: the
+        per-shard launch of the first rank with rows (``ms``, beside that
+        launch's bound), the whole-buffer plain version and library call
+        (rank 0), every rank's all-reduce and twin times."""
+        shard = next(r for r in rows if r.get("shard_ms") is not None)
+        bnd = shard.get("shard_bound")
+        b_ms, b_by = bnd if bnd is not None else (shard["shard_bound_ms"],
+                                                  shard["shard_bound_by"])
+        return {"name": name, "route": "cuda", "source": src,
+                "wrapper": extra.pop("wrapper"), "replaces": replaces,
+                "launches": twin_launches(name), "max_abs_err": err,
+                "ms": shard["shard_ms"], "plain_ms": rows[0]["plain_ms"],
+                "bound_ms": b_ms, "bound_by": b_by,
+                "library_ms": rows[0].get("library_ms"),
+                "unsharded_ms": rows[0]["unsharded_ms"],
+                "timed_rank": shard["rank"], "per_rank": rows, **extra}
+
+    tw2 = mesh_runs[2]["twins"]
+    errs_all = [t["max_abs_err"] for run_out in mesh_runs.values()
+                for t in run_out["twins"]]
+    lm_twin_rows = [t["lm_time"] for t in tw2]
+    return [
+        twin_entry("aggregate_rows_sharded",
+                   "src/repro/kernels/aggregate.py:140",
+                   "src/repro_torch/kernels/csrc/aggregate.cu",
+                   [t["times"][1] for t in tw2],
+                   max([e["rows"] for e in errs_all]
+                       + [r["max_abs_err"] for r in lm_twin_rows]),
+                   {"wrapper": "src/repro_torch/kernels/aggregate.py",
+                    "shards": 2, "shape": tw2[0]["times"][1]["shape"],
+                    "lm": lm_twin_rows,
+                    "s4": [t["times"][1] for t in mesh_runs[4]["twins"]]}),
+        twin_entry("aggregate_rows_cols_sharded",
+                   "src/repro/kernels/aggregate.py:170",
+                   "src/repro_torch/kernels/csrc/aggregate.cu",
+                   [t["times"][0] for t in tw2],
+                   max(e["cols"] for e in errs_all),
+                   {"wrapper": "src/repro_torch/kernels/aggregate.py",
+                    "shards": 2, "shape": tw2[0]["times"][0]["shape"],
+                    "s4": [t["times"][0] for t in mesh_runs[4]["twins"]]}),
+        twin_entry("fused_sgd_sharded",
+                   "src/repro/kernels/fused_sgd.py:135",
+                   "src/repro_torch/kernels/csrc/fused_sgd.cu",
+                   [t["sgd_time"] for t in tw2],
+                   max(e["sgd_vs_plain"] for e in errs_all),
+                   {"wrapper": "src/repro_torch/kernels/fused_sgd.py",
+                    "shards": 2, "shape": {"k": tw2[0]["sgd_time"]["k"],
+                                           "with_losses": False},
+                    "library_ms": None, "bit_identical_to_kernel": True,
+                    "s4": [t["sgd_time"] for t in mesh_runs[4]["twins"]]}),
+    ]
 
 
 def main() -> int:
@@ -1029,6 +1552,42 @@ def main() -> int:
         ("smollm", smollm_135m.get_smoke_config()),
         ("mamba2", mamba2_2_7b.get_smoke_config()))}
 
+    # ---- 19-21. the fleet mesh: gloo ranks sharing the card ----------------
+    from repro_torch.launch import mesh as MESH
+    lm10 = dataclasses.replace(lm_run, n_rounds=10)
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lm10_fleet, lm10_hist = LW.run_lm_federation(lm_mech(), lm_cfg, lm10)
+    torch.cuda.synchronize()
+    lm10_wall = time.perf_counter() - t0
+    del lm10_fleet
+    torch.cuda.empty_cache()
+    col_top = next(s_ for s_, _ in agg_shapes if s_[3])
+    row_top = next((s_ for s_, _ in agg_shapes if not s_[3]),
+                   ("aggregate", N_WORKERS, N_WORKERS, False))
+    plan_base = dict(device="cuda", n=N_WORKERS, P=P, reps=20,
+                     buckets=buckets, dim=cfg.dim, hidden=cfg.hidden,
+                     steps=steps, batch=batch, lr=cfg.lr,
+                     sgd_ks=(8, 16, N_WORKERS),
+                     agg_top=[tuple(col_top[1:]), tuple(row_top[1:])],
+                     sgd_top=sgd_shapes[0][0][1], sim_cfg=cfg)
+    mesh_runs = {}
+    for n_sh in MESH_SHARDS:
+        plan = dict(plan_base)
+        if n_sh == 2:
+            plan["lm_twin"] = dict(n=lm_run.n_workers, P=lm_agg_row["P"],
+                                   row_ids=[2, 5], reps=3)
+            plan["lm"] = (lm_cfg, lm10)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = MESH.spawn(mesh_rank, n_sh, plan, device="cuda")
+        spawn_wall = time.perf_counter() - t0
+        mesh_runs[n_sh] = mesh_checks(n_sh, ranks, spawn_wall, hist,
+                                      lm10_hist, lm10_wall, lm_run.n_workers,
+                                      lm_agg_row["P"])
+        del ranks
+
     top_agg, top_sgd = agg_rows[0], sgd_rows[0]
     kernels = [
         {"name": "aggregate", "route": "cuda",
@@ -1082,6 +1641,17 @@ def main() -> int:
          "bound_by": router_rows[0]["bound_by"], "library_ms": None,
          "call_ms": router_rows[0]["call_ms"], "kimi": router_rows[1]},
     ]
+    kernels += mesh_kernel_rows(mesh_runs)
+    print(json.dumps({"mesh": {
+        "backend": "gloo", "device": "cuda:0 shared by every rank",
+        "sim_config": "SimConfig() defaults with mesh_shards=S, "
+                      "DySTop(V=10.0, t_thre=20)",
+        "lm_config": "phase 8's smollm-135m config at n_rounds=10, "
+                     "mesh_shards=2",
+        "unsharded_sim_wall_s": sim_wall,
+        "shards": {str(k_): {**v, "twins": [t["max_abs_err"]
+                                            for t in v["twins"]]}
+                   for k_, v in mesh_runs.items()}}}))
     print(json.dumps({"aggregate_shapes": agg_rows}))
     print(json.dumps({"fused_sgd_shapes": sgd_rows}))
     print(json.dumps({"lm": {

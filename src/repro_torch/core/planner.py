@@ -112,6 +112,28 @@ def bucket_key(plan: "PlannedRound", n_workers: int,
     return key
 
 
+def shard_spans(row_ids: np.ndarray, n_workers: int,
+                mesh_shards: int) -> List[Tuple[int, int]]:
+    """Per-shard ``[lo, hi)`` segments of a home-shard-grouped gathered id
+    vector (``aggregation.padded_rows(shards=...)`` layout).
+
+    The sharded buffer partitions its padded row axis into contiguous blocks
+    of ``N_pad // mesh_shards`` rows, one per rank, so a sorted id vector is
+    grouped by home shard and each shard's gather/scatter touches one
+    contiguous segment of the gathered set.  Raises if the ids are not
+    grouped by home shard.
+    """
+    ids = np.asarray(row_ids)
+    n_pad = n_workers + (-n_workers) % mesh_shards
+    block = n_pad // mesh_shards
+    homes = ids // block
+    if not (np.diff(homes) >= 0).all():
+        raise ValueError(f"shard_spans: row ids {ids.tolist()} are not "
+                         f"grouped by home shard (block {block})")
+    bounds = np.searchsorted(homes, np.arange(mesh_shards + 1))
+    return [(int(bounds[s]), int(bounds[s + 1])) for s in range(mesh_shards)]
+
+
 def mix_is_train(plan: "PlannedRound") -> bool:
     """True iff the round's mixing rows EQUAL its training rows — i.e. no
     worker pulls without also being activated (every DySTop round: only

@@ -20,15 +20,19 @@ The port of ``repro.dfl.lm_worker`` on its resident, pipelined path:
 Everything runs on ``device`` ("cuda" unless the caller asks for "cpu",
 where the kernels' plain versions run); the control plane and the token
 streams run on the host with the JAX package's numpy draws, so both
-packages see identical control trajectories and batches.  The JAX package's
-per-call-flatten oracle, the fleet mesh and checkpointing are not ported:
-their settings raise ``NotImplementedError`` naming their ROADMAP item.
+packages see identical control trajectories and batches.  With
+``mesh_shards > 1`` the resident buffers are row-partitioned over a fleet
+mesh of that many processes (``launch.mesh``,
+``sharding.rules.FleetSharding``).  The JAX package's per-call-flatten
+oracle and checkpointing are not ported: their settings raise
+``NotImplementedError`` naming their ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Any, Callable, Dict, Iterator, List, Optional, Tuple
+from typing import (Any, Callable, ClassVar, Dict, Iterator, List, Optional,
+                    Tuple)
 
 import numpy as np
 import torch
@@ -46,8 +50,10 @@ from repro_torch.dfl.network import (EdgeNetwork, NetworkConfig,
                                      heterogeneous_compute_times)
 from repro_torch.dfl.pipeline import DispatchPipeline
 from repro_torch.kernels.config import KernelConfig
+from repro_torch.launch import mesh as MESH
 from repro_torch.models import registry as R
 from repro_torch.optim import Optimizer, get_optimizer
+from repro_torch.sharding.rules import FleetSharding
 from repro_torch.tree import tree_from_paths, tree_leaves, tree_map
 
 F32 = torch.float32
@@ -60,7 +66,9 @@ class LMFleet:
     ``pbuf`` (N, P) and ``obuf`` (N, S) are the only storage; ``spec``
     carries the ravel metadata of both.  The ``stacked_*`` properties
     materialize the stacked trees (f32 storage holds the bf16 params and the
-    int32 step counter exactly)."""
+    int32 step counter exactly).  On a rank of a fleet mesh the buffers
+    are the rank's ``(block, ·)`` block of the padded fleet while it
+    trains (``init_fleet(shd=...)``)."""
     cfg: ModelConfig
     pbuf: torch.Tensor              # (N, P) f32 resident params
     obuf: torch.Tensor              # (N, S) f32 resident optimizer state
@@ -86,24 +94,36 @@ class LMFleet:
         return FS.nbytes_of(self.spec.opt)
 
 
+def _fleet_spec(params, opt: Optimizer) -> Tuple[FS.FleetSpec, Any]:
+    opt_state = opt.init(params)
+    return FS.FleetSpec(params=FS.tree_spec(params),
+                        opt=FS.tree_spec(opt_state)), opt_state
+
+
 def init_fleet(cfg: ModelConfig, n_workers: int, optimizer: str = "adam",
                lr: float = 1e-3, seed: int = 0,
-               device="cuda") -> LMFleet:
+               device="cuda", shd: Optional[FleetSharding] = None
+               ) -> LMFleet:
     """All workers start from one w_0 (paper Thm. 1's shared init): drawn
     on the CPU from ``torch.Generator().manual_seed(seed)``, so the card and
-    the CPU start alike, then raveled once into the resident buffers."""
+    the CPU start alike, then raveled once into the resident buffers.
+    With ``shd`` the buffers are this rank's block (its real rows w_0, its
+    padding rows zero): the same draw at every shard count."""
     R.check_trainable(cfg)
     opt = get_optimizer(optimizer, lr)
     params = R.init_params(cfg, torch.Generator().manual_seed(seed))
     params = tree_map(lambda leaf: leaf.to(device), params)
-    opt_state = opt.init(params)
-    spec = FS.FleetSpec(params=FS.tree_spec(params),
-                        opt=FS.tree_spec(opt_state))
+    spec, opt_state = _fleet_spec(params, opt)
 
     def rows(tree, fs):
         row = torch.empty((fs.n_params,), dtype=F32, device=device)
-        return FS.ravel_tree_into(tree, fs, row).expand(n_workers,
-                                                        -1).clone()
+        FS.ravel_tree_into(tree, fs, row)
+        if shd is None:
+            return row.expand(n_workers, -1).clone()
+        block = torch.zeros((shd.block, fs.n_params), dtype=F32,
+                            device=device)
+        block[:shd.n_home_real] = row
+        return block
 
     return LMFleet(cfg=cfg, pbuf=rows(params, spec.params),
                    obuf=rows(opt_state, spec.opt), spec=spec, optimizer=opt,
@@ -150,11 +170,16 @@ def _batch(tokens: torch.Tensor, labels: torch.Tensor) -> Dict[str, Any]:
 
 @torch.no_grad()
 def _global_loss(cfg: ModelConfig, pspec: FS.FlatSpec, pbuf: torch.Tensor,
-                 alpha: torch.Tensor, batch: Dict[str, Any]) -> torch.Tensor:
+                 alpha: torch.Tensor, batch: Dict[str, Any],
+                 shd: Optional[FleetSharding] = None) -> torch.Tensor:
     """Loss of the data-size-weighted global model (paper Eq. 11): one
-    ``alpha @ pbuf`` product, an unravel and one forward."""
-    gm = FS.unravel_tree(FS.weighted_row(pbuf, alpha), pspec)
-    return R.compute_loss(cfg, gm, batch)[0]
+    ``alpha @ pbuf`` product, an unravel and one forward.  With ``shd``
+    ``pbuf`` and ``alpha`` are this rank's block and one all-reduce sums
+    the partial products."""
+    row = FS.weighted_row(pbuf, alpha)
+    if shd is not None:
+        shd.psum(row)
+    return R.compute_loss(cfg, FS.unravel_tree(row, pspec), batch)[0]
 
 
 def fleet_eval(fleet: LMFleet, batch: Dict[str, torch.Tensor],
@@ -180,13 +205,20 @@ class LMEngine:
     back.  Inactive rows are never touched, and padding rows (mask 0) stay
     bit-identical.  Under the ``mix_is_train`` fusion (mix rows == train
     rows, every DySTop round) the mixed rows feed the train step directly.
+
+    ``shd`` (a ``sharding.rules.FleetSharding``) runs this rank's share:
+    the buffers are its blocks, the mix goes through the mesh twins of
+    ``kernels.aggregate`` (one all-reduce per round), and the rank trains
+    only the activated rows of its own block, flash attention included.
     """
 
     def __init__(self, cfg: ModelConfig, optimizer: Optimizer,
                  spec: FS.FleetSpec,
-                 kernels: Optional[KernelConfig] = None):
+                 kernels: Optional[KernelConfig] = None,
+                 shd: Optional[FleetSharding] = None):
         self.cfg, self.opt, self.spec = cfg, optimizer, spec
         self.kernels = kernels or KernelConfig()
+        self.shd = shd
 
     def _train_row(self, pvec: torch.Tensor, ovec: torch.Tensor,
                    tok: torch.Tensor, lab: torch.Tensor) -> torch.Tensor:
@@ -210,39 +242,58 @@ class LMEngine:
         return loss.detach()
 
     def _train_rows(self, prow: Callable[[int], torch.Tensor],
-                    obuf: torch.Tensor, tids_h: np.ndarray,
+                    obuf: torch.Tensor, rows_h: np.ndarray,
                     mask_h: np.ndarray, tok: torch.Tensor,
                     lab: torch.Tensor) -> torch.Tensor:
         """Train the gathered rows whose mask is set (``prow(i)`` is gathered
-        row i's param row); returns the (k,) losses, 0 for padding rows."""
-        losses = torch.zeros((len(tids_h),), dtype=F32, device=obuf.device)
+        row i's param row, ``rows_h[i]`` its row of ``obuf``); returns the
+        losses, 0 for padding rows."""
+        losses = torch.zeros((len(rows_h),), dtype=F32, device=obuf.device)
         for i in np.flatnonzero(mask_h > 0):
-            losses[i] = self._train_row(prow(i), obuf[int(tids_h[i])],
+            losses[i] = self._train_row(prow(i), obuf[int(rows_h[i])],
                                         tok[i], lab[i])
         return losses
 
     def _round_body(self, pbuf, obuf, w, mids, cids, tids, tids_h, mask_h,
-                    tok, lab, fuse: bool) -> torch.Tensor:
-        n = pbuf.shape[0]
+                    tok, lab, fuse: bool, seg=None) -> torch.Tensor:
+        """One round in place; returns the (rows,) losses.  With ``shd``,
+        ``seg`` is this rank's ``shard_segments`` row, ``tok``/``lab``
+        hold its train segment's batches, and the losses span the padded
+        fleet (0 off this rank's block)."""
+        shd = self.shd
         k_mix, k_train = w.shape[0], tids.shape[0]
+        mseg = None
+        rows_h = tids_h
+        if shd is None:
+            n = pbuf.shape[0]
+            rows_d = tids.long()
+        else:
+            n = shd.n_pad
+            mseg, (a, b) = (seg[0], seg[1]), (seg[2], seg[3])
+            tids, tids_h, mask_h = tids[a:b], tids_h[a:b], mask_h[a:b]
+            rows_h = tids_h - shd.home[0]
+            rows_d = shd.local(tids)
         losses = torch.zeros((n,), dtype=F32, device=pbuf.device)
         tids_d = tids.long()
         if fuse and k_mix and k_train:
             # mix rows == train rows: Eq. 4 output feeds the step directly;
             # padding rows carry their identity-mixed (unchanged) value back
-            sub = WK._mix_rows(pbuf, w, cids, self.kernels)
-            sl = self._train_rows(lambda i: sub[i], obuf, tids_h, mask_h,
+            sub = WK._mix_rows(pbuf, w, cids, self.kernels, shd, mseg)
+            if len(rows_h) == 0:
+                return losses
+            sl = self._train_rows(lambda i: sub[i], obuf, rows_h, mask_h,
                                   tok, lab)
-            pbuf.index_copy_(0, tids_d, sub)
+            pbuf.index_copy_(0, rows_d, sub)
             return losses.index_copy_(0, tids_d, sl)
         if k_mix:
             if cids is not None:
-                WK.mix_flat_cols(pbuf, w, mids, cids, self.kernels)
+                WK.mix_flat_cols(pbuf, w, mids, cids, self.kernels, shd,
+                                 mseg)
             else:
-                WK.mix_flat(pbuf, w, mids, self.kernels)
-        if k_train:
-            sl = self._train_rows(lambda i: pbuf[int(tids_h[i])], obuf,
-                                  tids_h, mask_h, tok, lab)
+                WK.mix_flat(pbuf, w, mids, self.kernels, shd, mseg)
+        if k_train and len(rows_h):
+            sl = self._train_rows(lambda i: pbuf[int(rows_h[i])], obuf,
+                                  rows_h, mask_h, tok, lab)
             losses.index_copy_(0, tids_d, sl)
         return losses
 
@@ -256,24 +307,33 @@ class LMEngine:
 
         ``tokens``/``labels`` are the full-N per-round batches (H, N, B, S).
         ``pregather=True`` gathers the k activated rows on the host (by the
-        padded train ids packed into ``ctrl``) so only (H, k, B, S) crosses
-        to the card; otherwise they are gathered on the device.  ``key`` is
-        the chunk's ``bucket_key`` (``worker.pack_chunk`` packs by it);
-        ``walls`` accumulates ``pack_wall_s`` / ``stage_wall_s``.  Returns
-        (pbuf, obuf, (H, N) per-round losses — zero for idle workers)."""
+        padded train ids packed into ``ctrl``; with ``shd``, only this
+        rank's segment of them) so only those rows cross to the card;
+        otherwise they are gathered on the device.  ``key`` is the chunk's
+        ``bucket_key`` (``worker.pack_chunk`` packs by it); ``walls``
+        accumulates ``pack_wall_s`` / ``stage_wall_s``.  Returns (pbuf,
+        obuf, (H, rows) per-round losses — zero for idle workers; with
+        ``shd`` the rows span the padded fleet and only this rank's are
+        filled)."""
+        shd = self.shd
         t0 = time.perf_counter()
         w, c, _ = WK.pack_chunk(chunk, key, min_bucket=min_bucket,
-                                col_sparse=col_sparse)
+                                col_sparse=col_sparse,
+                                shards=1 if shd is None else shd.n_shards)
+        if shd is not None and not (col_sparse and w.shape[1]):
+            w = WK.pad_w_cols(w, shd.n_pad)
         k_mix = w.shape[1]
         u = w.shape[2] if col_sparse and k_mix else 0
         # one ctrl-layout definition: the host and the device split alike
         _, _, tids_h, mask_h = WK.split_ctrl(c, k_mix, u)
         k_train = tids_h.shape[-1]
+        segs = (np.tile([0, k_mix, 0, k_train], (len(chunk), 1))
+                if shd is None else WK.shard_segments(c, k_mix, u, shd))
         pregather = pregather and bool(k_train)
         if pregather:
-            h_ix = np.arange(len(chunk))[:, None]
-            tokens = tokens[h_ix, tids_h]                    # (H, k, B, S)
-            labels = labels[h_ix, tids_h]
+            own = [tids_h[h, a:b] for h, (a, b) in enumerate(segs[:, 2:])]
+            tokens = np.concatenate([tokens[h, r] for h, r in enumerate(own)])
+            labels = np.concatenate([labels[h, r] for h, r in enumerate(own)])
         t1 = time.perf_counter()
         dev = pbuf.device
 
@@ -288,23 +348,32 @@ class LMEngine:
             walls.stage_wall_s += time.perf_counter() - t1
         mix_ids, col_ids, train_ids, _ = WK.split_ctrl(c_d, k_mix, u)
         losses = []
+        off = 0
         for h in range(len(chunk)):
-            tk, lb = tk_d[h], lb_d[h]
-            if k_train and not pregather:
-                ids = train_ids[h].long()
-                tk, lb = tk[ids], lb[ids]
+            a, b = segs[h, 2], segs[h, 3]
+            if pregather:        # this chunk's gathered rows, round by round
+                tk, lb = tk_d[off:off + b - a], lb_d[off:off + b - a]
+                off += b - a
+            else:
+                tk, lb = tk_d[h], lb_d[h]
+                if k_train:
+                    ids = train_ids[h, a:b].long()
+                    tk, lb = tk[ids], lb[ids]
             losses.append(self._round_body(
                 pbuf, obuf, w_d[h], mix_ids[h],
                 None if col_ids is None else col_ids[h], train_ids[h],
-                tids_h[h], mask_h[h], tk, lb, fuse))
+                tids_h[h], mask_h[h], tk, lb, fuse,
+                None if shd is None else segs[h]))
         return pbuf, obuf, torch.stack(losses)
 
     def eval_global(self, pbuf: torch.Tensor, alpha: torch.Tensor,
                     tokens: torch.Tensor, labels: torch.Tensor
                     ) -> torch.Tensor:
-        """Eq. 11 eval of the resident buffer (0-dim loss on the device)."""
+        """Eq. 11 eval of the resident buffer (0-dim loss on the device);
+        with ``shd``, of the whole fleet from this rank's block and its
+        ``alpha`` entries."""
         return _global_loss(self.cfg, self.spec.params, pbuf, alpha,
-                            _batch(tokens, labels))
+                            _batch(tokens, labels), self.shd)
 
 
 # --------------------------------------------------------------------------- #
@@ -324,6 +393,8 @@ class LMRunConfig:
     ``min_bucket=2``: LM fleets are small, so fine shape buckets keep the
     gathered row set near the true activation count.
     ``host_batch_gather`` gathers the k activated batch rows on the host.
+    ``mesh_shards > 1`` row-partitions the resident buffers over a fleet
+    mesh of that many ranks (see ``run_lm_federation``).
 
     ``device``: where the model plane runs — ``"cuda"`` (the default; the
     run raises if there is no CUDA card) or ``"cpu"``.  Settings of paths
@@ -406,7 +477,6 @@ class LMRunConfig:
         for off, what, item in (
                 (not self.resident_fleet, "resident_fleet=False (the "
                  "per-call-flatten oracle)", 4),
-                (self.mesh_shards > 1, "mesh_shards > 1 (the mesh slice)", 5),
                 (self.checkpoint_every > 0, "checkpoint_every > 0 "
                  "(snapshots)", 3),
                 (self.use_kernel, "use_kernel (the JAX package's kernel "
@@ -424,7 +494,8 @@ class LMHistory:
     ``*_wall_s`` fields in real host seconds — ``plan`` in the planner,
     ``pack`` chunk splitting and packing, ``stage`` host-to-device staging,
     ``drain`` the host blocked on the device, ``eval`` the Eq. 11 evals,
-    ``setup`` everything before the round loop)."""
+    ``setup`` everything before the round loop; ``mesh_backend`` the fleet
+    mesh's collective backend, None without a mesh)."""
     rounds: List[int] = dataclasses.field(default_factory=list)
     sim_time: List[float] = dataclasses.field(default_factory=list)
     comm_gb: List[float] = dataclasses.field(default_factory=list)
@@ -442,6 +513,9 @@ class LMHistory:
     pack_wall_s: float = 0.0
     stage_wall_s: float = 0.0
     drain_wall_s: float = 0.0
+    # a class attribute, not a field (the fields mirror the JAX package's);
+    # a mesh run sets it on its history
+    mesh_backend: ClassVar[Optional[str]] = None
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -461,6 +535,22 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     replaces the port's own initialisation with the JAX package's resident
     buffers ``(fleet.pbuf, fleet.obuf)`` as numpy arrays
     (``flat_state.fleet_from_reference``).
+
+    ``run.mesh_shards > 1``: called from a plain process, this spawns the
+    mesh's ranks (``launch.mesh.spawn``) and returns rank 0's result, the
+    fleet crossing back through a pipe as numpy arrays; called inside a
+    process group of that size, it runs this rank's share.  A rank holds its
+    block of the padded ``pbuf``/``obuf`` (same init draw at every shard
+    count), trains only the activated rows of its block on their batches
+    (with ``host_batch_gather``, only those rows are gathered), and
+    all-reduces the Eq. 4 partial products or union slab, the Eq. 11
+    partial sum and, at history points, the round losses.  After the last
+    round the blocks are gathered to rank 0 through host memory (gloo) and
+    rank 0 returns the fleet with every row; the other ranks return
+    ``(None, history)``.  At smollm-135m's full width with 8 workers that
+    assembly moves 12.9 GB (f32 params and Adam's two moments) through the
+    host and holds the whole fleet on rank 0's device beside its
+    optimizer-state block.
     """
     R.check_trainable(cfg)
     if resume_from is not None:
@@ -469,17 +559,32 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
                                   "— ROADMAP Queue A item 3")
     dev = resolve_device(device if device is not None else run.device,
                          "run_lm_federation")
+    if run.mesh_shards > 1 and not MESH.in_group():
+        pbuf, obuf, hist = MESH.spawn(_lm_rank, run.mesh_shards, mechanism,
+                                      cfg, run, str(dev), init, device=dev)
+        opt = get_optimizer(run.optimizer, run.lr)
+        spec, _ = _fleet_spec(R.init_params(cfg, None), opt)
+        return LMFleet(cfg=cfg, pbuf=torch.from_numpy(pbuf).to(dev),
+                       obuf=torch.from_numpy(obuf).to(dev), spec=spec,
+                       optimizer=opt, n_workers=run.n_workers), hist
     t_wall = time.time()
     n = run.n_workers
-    rng =np.random.default_rng(run.seed)
+    shd = (FleetSharding.create(run.mesh_shards, n, dev)
+           if run.mesh_shards > 1 else None)
+    if shd is not None:
+        dev = shd.device
+    rng = np.random.default_rng(run.seed)
     fleet = init_fleet(cfg, n, optimizer=run.optimizer, lr=run.lr,
-                       seed=run.seed, device=dev)
+                       seed=run.seed, device=dev, shd=shd)
     if init is not None:
-        fleet.pbuf, fleet.obuf = FS.fleet_from_reference(
-            init[0], init[1], fleet.spec, dev)
-        if fleet.pbuf.shape[0] != n:
+        if init[0].shape[0] != n:
             raise ValueError(f"run_lm_federation: init holds "
-                             f"{fleet.pbuf.shape[0]} workers, the run {n}")
+                             f"{init[0].shape[0]} workers, the run {n}")
+        pb, ob = FS.fleet_from_reference(init[0], init[1], fleet.spec,
+                                         dev if shd is None else "cpu")
+        fleet.pbuf, fleet.obuf = ((pb, ob) if shd is None else
+                                  (shd.put_rows_padded(pb),
+                                   shd.put_rows_padded(ob)))
     streams = worker_streams(cfg, n, run.batch, run.seq, seed=run.seed)
     ev = next(worker_streams(cfg, 1, run.batch, run.seq, seed=run.seed + 1))
     eval_tok = torch.from_numpy(ev["tokens"][0]).to(dev)
@@ -499,10 +604,14 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
         link_timeout_s=run.link_timeout_s,
         sync_link_timeout_s=run.sync_link_timeout_s,
         failure_prob=run.failure_prob, failure_persist=run.failure_persist,
-        scenario=scen)
-    alpha = torch.full((n,), 1.0 / n, dtype=F32, device=dev)
+        mesh_shards=run.mesh_shards, scenario=scen)
+    alpha = torch.full((n,), 1.0 / n, dtype=F32)
+    alpha = alpha.to(dev) if shd is None else shd.put_rows_padded(alpha)
     hist = LMHistory()
-    engine = LMEngine(cfg, fleet.optimizer, fleet.spec, kernels=run.kernels)
+    if shd is not None:
+        hist.mesh_backend = shd.mesh.backend
+    engine = LMEngine(cfg, fleet.optimizer, fleet.spec, kernels=run.kernels,
+                      shd=shd)
     horizon = max(1, run.scan_horizon)
     on_card = dev.type == "cuda"
     hist.setup_wall_s = time.time() - t_wall
@@ -517,7 +626,8 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
         plans = [p for p, _ in pending]
         t0 = time.perf_counter()
         spans = list(chunk_spans(plans, n, col_sparse=run.col_sparse_mix,
-                                 min_bucket=run.min_bucket))
+                                 min_bucket=run.min_bucket,
+                                 mesh_shards=run.mesh_shards))
         hist.pack_wall_s += time.perf_counter() - t0
         for lo, hi, key in spans:
             chunk = plans[lo:hi]
@@ -541,7 +651,9 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
 
     def drain_losses():
         for losses, actives in loss_rows:
-            for row, active in zip(losses.cpu().numpy(), actives):
+            if shd is not None:        # each rank filled its own rows
+                shd.psum(losses)
+            for row, active in zip(losses[:, :n].cpu().numpy(), actives):
                 hist.round_loss.append(float(row[active].mean())
                                        if active.any() else 0.0)
         loss_rows.clear()
@@ -551,7 +663,7 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
         p = planner.plan_round()
         # resolve the shape-bucket key at plan time (memoized on the plan)
         bucket_key(p, n, col_sparse=run.col_sparse_mix,
-                   min_bucket=run.min_bucket)
+                   min_bucket=run.min_bucket, mesh_shards=run.mesh_shards)
         hist.plan_wall_s += time.perf_counter() - t0p
         b = next(streams)                 # one draw per round
         hist.round_durations.append(p.duration)
@@ -582,5 +694,25 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     pipe.drain()
     hist.drain_wall_s += pipe.drain_wall_s
     drain_losses()
+    if shd is not None:
+        # every row of the fleet on rank 0; each block is freed as its
+        # assembled buffer replaces it
+        fleet.pbuf = shd.gather_rows(fleet.pbuf)
+        fleet.obuf = shd.gather_rows(fleet.obuf)
+        if shd.rank != 0:
+            fleet = None
     hist.wall_s = time.time() - t_wall
     return fleet, hist
+
+
+def _lm_rank(mechanism, cfg: ModelConfig, run: LMRunConfig, device: str,
+             init) -> Tuple[Optional[np.ndarray], Optional[np.ndarray],
+                            LMHistory]:
+    """One rank of a spawned LM mesh: its share of the run; rank 0 returns
+    the assembled buffers as numpy arrays (no CUDA tensor may outlive the
+    rank)."""
+    fleet, hist = run_lm_federation(mechanism, cfg, run, device=device,
+                                    init=init)
+    if fleet is None:
+        return None, None, hist
+    return fleet.pbuf.cpu().numpy(), fleet.obuf.cpu().numpy(), hist

@@ -11,13 +11,15 @@ Communication overhead metric = total model-transfer bytes.
 The host planner (``core.planner.HorizonPlanner``) resolves each round's
 control plane; pending rounds go to the device in bucket-uniform chunks
 (``dfl.worker.mega_round_step``), with the flat (N, P) model buffer resident
-on ``device`` and updated in place.
+on ``device`` and updated in place.  With ``mesh_shards > 1`` the buffer is
+row-partitioned over a fleet mesh of that many processes
+(``launch.mesh``, ``sharding.rules.FleetSharding``).
 """
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional
+from typing import ClassVar, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -37,6 +39,8 @@ from repro_torch.dfl.network import (EdgeNetwork, NetworkConfig,
                                      heterogeneous_compute_times)
 from repro_torch.dfl.pipeline import DispatchPipeline
 from repro_torch.kernels.config import KernelConfig
+from repro_torch.launch import mesh as MESH
+from repro_torch.sharding.rules import FleetSharding
 
 
 @dataclasses.dataclass
@@ -57,6 +61,12 @@ class SimConfig:
     ``device``: where the model plane runs — ``"cuda"`` (the default; the
     run raises if there is no CUDA card) or ``"cpu"``, where the kernels'
     plain PyTorch versions run.  The control plane always runs on the host.
+
+    ``mesh_shards > 1`` row-partitions the buffer and the training data over
+    a fleet mesh of that many ranks (one process each; ``launch.mesh``
+    states the backend rule).  Every rank plans the same rounds; histories
+    are identical to the unsharded run's on the control plane and agree to
+    f32 sum-order tolerance on the model plane.
 
     Fields of the JAX package that this port does not run yet are kept and
     validated, and a non-default value raises ``NotImplementedError`` naming
@@ -99,7 +109,7 @@ class SimConfig:
     fused_local_sgd: bool = True      # the fused SGD kernel; off = the
                                       #   autograd oracle (non-MLP specs fall
                                       #   back to it automatically)
-    mesh_shards: int = 1              # row-partition the buffer over devices
+    mesh_shards: int = 1              # row-partition the buffer over ranks
     min_bucket: int = 8               # smallest power-of-two shape bucket;
                                       #   any value yields identical
                                       #   trajectories
@@ -159,7 +169,6 @@ class SimConfig:
         for off, what, item in (
                 (not self.fused_engine, "fused_engine=False (the legacy "
                  "per-leaf path)", 4),
-                (self.mesh_shards > 1, "mesh_shards > 1 (the mesh slice)", 5),
                 (self.checkpoint_every > 0, "checkpoint_every > 0 "
                  "(snapshots)", 3),
                 (self.use_kernel, "use_kernel (the JAX package's kernel "
@@ -182,6 +191,8 @@ class History:
     in ``planner.plan_round``, ``pack_wall_s`` chunk splitting, packing and
     batch drawing, ``stage_wall_s`` host-to-device staging and the batch
     gather launch, ``drain_wall_s`` the host blocked on the device.
+    ``mesh_backend`` is the fleet mesh's collective backend ("gloo" or
+    "nccl"; None without a mesh).
     """
     rounds: List[int] = dataclasses.field(default_factory=list)
     sim_time: List[float] = dataclasses.field(default_factory=list)
@@ -202,6 +213,9 @@ class History:
     pack_wall_s: float = 0.0
     stage_wall_s: float = 0.0
     drain_wall_s: float = 0.0
+    # a class attribute, not a field (the fields mirror the JAX package's);
+    # a mesh run sets it on its history
+    mesh_backend: ClassVar[Optional[str]] = None
 
     def to_dict(self) -> dict:
         return dataclasses.asdict(self)
@@ -221,6 +235,15 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
     parameters of the JAX package (numpy arrays with a leading worker axis,
     ``flat_state.from_reference``); the control plane does not depend on
     the init.
+
+    ``cfg.mesh_shards > 1``: called from a plain process, this spawns the
+    mesh's ranks (``launch.mesh.spawn``) and returns rank 0's history;
+    called inside a process group of that size, it runs this rank's share:
+    the rank holds its block of the padded buffer and the training samples
+    of its own workers, stages only its rows' minibatches (drawn per
+    (seed, round, worker) as ever, so identical at every shard count),
+    and all-reduces the Eq. 4 partial products or union slab and the
+    Eq. 11 partial sums.
     """
     if resume_from is not None:
         raise NotImplementedError("run_simulation: resume_from (snapshots) "
@@ -228,6 +251,14 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
                                   "Queue A item 3")
     dev = resolve_device(device if device is not None else cfg.device,
                          "run_simulation")
+    if cfg.mesh_shards > 1 and not MESH.in_group():
+        return MESH.spawn(_sim_rank, cfg.mesh_shards, mechanism, cfg, data,
+                          test, record_history_for_bound, str(dev), init,
+                          device=dev)
+    shd = (FleetSharding.create(cfg.mesh_shards, cfg.n_workers, dev)
+           if cfg.mesh_shards > 1 else None)
+    if shd is not None:
+        dev = shd.device
     rng = np.random.default_rng(cfg.seed)
     t_wall = time.time()
 
@@ -241,8 +272,8 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
     parts, class_counts = dirichlet_partition(data, cfg.n_workers, cfg.phi,
                                               seed=cfg.seed)
     data_sizes = np.array([len(p) for p in parts], np.float64)
-    alpha = torch.tensor(data_sizes / data_sizes.sum(), dtype=torch.float32,
-                         device=dev)
+    alpha = torch.tensor(data_sizes / data_sizes.sum(), dtype=torch.float32)
+    alpha = alpha.to(dev) if shd is None else shd.put_rows_padded(alpha)
 
     # --- environment ---
     net = EdgeNetwork(NetworkConfig(n_workers=cfg.n_workers), rng)
@@ -256,9 +287,8 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
                                   cfg.n_workers, cfg.dim, cfg.hidden,
                                   data.n_classes)
         buf, flat_spec = FS.flatten_stacked(stacked)
-        buf = buf.to(dev)
     else:
-        buf, flat_spec = FS.from_reference(init, dev)
+        buf, flat_spec = FS.from_reference(init, "cpu")
         want = FS.spec_of(WK.init_stacked(torch.Generator(), 1, cfg.dim,
                                           cfg.hidden, data.n_classes))
         if buf.shape[0] != cfg.n_workers or flat_spec.shapes != want.shapes:
@@ -269,8 +299,18 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
     model_bytes = WK.param_bytes(FS.unravel_row(buf[0], flat_spec)) \
         * cfg.model_bytes_scale
     exp_link_time = net.expected_link_time(model_bytes)
-    data_x = torch.from_numpy(data.x).to(dev)      # device-resident dataset
-    data_y = torch.from_numpy(data.y).to(dev)
+    buf = buf.to(dev) if shd is None else shd.put_rows_padded(buf)
+    # the device-resident dataset; a rank holds its own workers' samples,
+    # and ``local_of`` maps a sample id to its row there
+    local_of, samples = None, slice(None)
+    if shd is not None:
+        lo = shd.home[0]
+        own = [parts[w] for w in range(lo, lo + shd.n_home_real)]
+        samples = np.unique(np.concatenate(own)) if own else np.zeros(0, int)
+        local_of = np.full(len(data.x), -1, np.int64)
+        local_of[samples] = np.arange(len(samples))
+    data_x = torch.from_numpy(data.x[samples]).to(dev)
+    data_y = torch.from_numpy(data.y[samples]).to(dev)
 
     # --- control plane: the horizon planner owns all mutable control state
     scen = resolve_scenario(cfg.scenario, cfg.n_workers, cfg.n_rounds,
@@ -283,11 +323,13 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
         link_timeout_s=cfg.link_timeout_s,
         sync_link_timeout_s=cfg.sync_link_timeout_s,
         failure_prob=cfg.failure_prob, failure_persist=cfg.failure_persist,
-        scenario=scen)
+        mesh_shards=cfg.mesh_shards, scenario=scen)
     x_test = torch.from_numpy(test.x).to(dev)
     y_test = torch.from_numpy(test.y).to(dev)
 
     hist = History()
+    if shd is not None:
+        hist.mesh_backend = shd.mesh.backend
     bound_log = {"active": [], "W": []} if record_history_for_bound else None
     horizon = cfg.scan_horizon
     fused_sgd = cfg.fused_local_sgd and WK.fused_sgd_supported(flat_spec)
@@ -306,7 +348,8 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
         t0 = time.perf_counter()
         spans = list(chunk_spans(plans, cfg.n_workers,
                                  col_sparse=cfg.col_sparse_mix,
-                                 min_bucket=cfg.min_bucket))
+                                 min_bucket=cfg.min_bucket,
+                                 mesh_shards=cfg.mesh_shards))
         hist.pack_wall_s += time.perf_counter() - t0
         for lo, hi, key in spans:
             chunk = plans[lo:hi]
@@ -316,13 +359,27 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
             t0 = time.perf_counter()
             w_h, ctrl_h, ts = WK.pack_chunk(chunk, key,
                                             min_bucket=cfg.min_bucket,
-                                            col_sparse=col)
+                                            col_sparse=col,
+                                            shards=cfg.mesh_shards)
             k_mix = w_h.shape[1]
             u = w_h.shape[2] if col and k_mix else 0
             k_train = (ctrl_h.shape[1] - k_mix - u) // 2
-            ids = (WK.sample_batch_ids(
-                cfg.seed, ts, ctrl_h[:, k_mix + u:k_mix + u + k_train],
-                parts, cfg.local_steps, cfg.batch_size) if k_train else None)
+            tids = ctrl_h[:, k_mix + u:k_mix + u + k_train]
+            segs = None
+            if shd is None:
+                ids = (WK.sample_batch_ids(
+                    cfg.seed, ts, tids, parts, cfg.local_steps,
+                    cfg.batch_size) if k_train else None)
+            else:
+                if not col:
+                    w_h = WK.pad_w_cols(w_h, shd.n_pad)
+                segs = WK.shard_segments(ctrl_h, k_mix, u, shd)
+                # this rank's train rows' minibatches, round after round
+                own = [WK.sample_batch_ids(
+                    cfg.seed, ts[h:h + 1], tids[h:h + 1, a:b], parts,
+                    cfg.local_steps, cfg.batch_size)[0]
+                    for h, (a, b) in enumerate(segs[:, 2:]) if b > a]
+                ids = local_of[np.concatenate(own)] if own else None
             mit = fused_sgd and all(mix_is_train(p) for p in chunk)
             t1 = time.perf_counter()
             hist.pack_wall_s += t1 - t0
@@ -335,7 +392,7 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
             WK.mega_round_step(buf, w_d, c_d, xb, yb, spec=flat_spec,
                                lr=cfg.lr, kernels=cfg.kernels, col_sparse=col,
                                fused_sgd=fused_sgd, with_losses=False,
-                               mix_is_train=mit)
+                               mix_is_train=mit, shd=shd, segs=segs)
             token = None
             if on_card:
                 token = torch.cuda.Event()
@@ -351,7 +408,7 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
         # resolve the round's shape-bucket key at plan time (memoized on
         # the plan): chunk_spans then only does lookups
         bucket_key(p, cfg.n_workers, col_sparse=cfg.col_sparse_mix,
-                   min_bucket=cfg.min_bucket)
+                   min_bucket=cfg.min_bucket, mesh_shards=cfg.mesh_shards)
         hist.plan_wall_s += time.perf_counter() - t0p
         t = p.t
         sim_clock = planner.sim_clock
@@ -385,9 +442,9 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
         if do_eval:
             t_eval = time.time()
             accg, lossg = WK.evaluate_global_flat(buf, alpha, x_test, y_test,
-                                                  spec=flat_spec)
+                                                  spec=flat_spec, shd=shd)
             accl, _ = WK.evaluate_stacked_flat(buf, x_test, y_test,
-                                               spec=flat_spec)
+                                               spec=flat_spec, shd=shd)
             hist.rounds.append(t)
             hist.sim_time.append(sim_clock)
             hist.comm_gb.append(planner.comm_bytes / 1e9)
@@ -409,3 +466,10 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
     if bound_log is not None:
         hist.bound_log = bound_log  # type: ignore[attr-defined]
     return hist
+
+
+def _sim_rank(mechanism, cfg, data, test, record_history_for_bound, device,
+              init):
+    """One rank of a spawned simulation mesh: its share of the run."""
+    return run_simulation(mechanism, cfg, data, test,
+                          record_history_for_bound, device=device, init=init)

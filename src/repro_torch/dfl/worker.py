@@ -92,25 +92,37 @@ def _acc_loss(logits: torch.Tensor, y: torch.Tensor):
 @torch.no_grad()
 def evaluate_global_flat(buf: torch.Tensor, alpha: torch.Tensor,
                          x: torch.Tensor, y: torch.Tensor, *,
-                         spec: FS.FlatSpec
+                         spec: FS.FlatSpec, shd=None
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eq. 11 global-model accuracy and loss straight off the flat buffer:
-    the global model is one ``alpha @ buf`` product, unravelled."""
-    gm = FS.unravel_row(FS.weighted_row(buf, alpha), spec)
-    return _acc_loss(mlp_logits(gm, x), y)
+    the global model is one ``alpha @ buf`` product, unravelled.  With
+    ``shd`` the buffer and ``alpha`` are this rank's block (padding rows
+    weigh 0) and one all-reduce sums the ranks' partial products."""
+    row = FS.weighted_row(buf, alpha)
+    if shd is not None:
+        shd.psum(row)
+    return _acc_loss(mlp_logits(FS.unravel_row(row, spec), x), y)
 
 
 @torch.no_grad()
 def evaluate_stacked_flat(buf: torch.Tensor, x: torch.Tensor,
-                          y: torch.Tensor, *, spec: FS.FlatSpec
+                          y: torch.Tensor, *, spec: FS.FlatSpec, shd=None
                           ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Mean local-model test accuracy and loss over all buffer rows."""
+    """Mean local-model test accuracy and loss over the workers' rows.
+    With ``shd`` the buffer is this rank's block: its real rows' sums are
+    all-reduced and divided by the fleet's worker count."""
+    if shd is not None:
+        buf = buf[:shd.n_home_real]
     p = FS.unflatten(buf, spec)
     h = torch.relu(torch.matmul(x, p["w1"]) + p["b1"][:, None])
     h = torch.relu(torch.bmm(h, p["w2"]) + p["b2"][:, None])
     logits = torch.bmm(h, p["w3"]) + p["b3"][:, None]        # (N, n, C)
     acc, loss = _acc_loss(logits, y)
-    return acc.mean(), loss.mean()
+    if shd is None:
+        return acc.mean(), loss.mean()
+    sums = torch.stack([acc.sum(), loss.sum()])
+    shd.psum(sums)
+    return sums[0] / shd.n_rows, sums[1] / shd.n_rows
 
 
 # --------------------------------------------------------------------------- #
@@ -119,35 +131,63 @@ def evaluate_stacked_flat(buf: torch.Tensor, x: torch.Tensor,
 
 
 def _mix_rows(buf: torch.Tensor, w_rows: torch.Tensor, col_ids,
-              kernels: Optional[KernelConfig]) -> torch.Tensor:
+              kernels: Optional[KernelConfig], shd=None,
+              seg=None) -> torch.Tensor:
     """The Eq. 4 contraction of the k gathered rows: (k, N) @ (N, P), or the
     column-sparse (k, u) @ buf[col_ids] when ``col_ids`` is given — one
-    ``kernels.aggregate`` call either way."""
+    ``kernels.aggregate`` call either way.  With ``shd`` (a
+    ``sharding.rules.FleetSharding``; ``buf`` is this rank's block) it runs
+    the mesh twin and returns only the rows of this rank's segment ``seg``
+    of the gathered set."""
     p_blk = (kernels or KernelConfig()).agg_p_blk
+    if shd is not None:
+        if col_ids is not None:
+            return AGG.aggregate_rows_cols_sharded(w_rows, col_ids, buf, shd,
+                                                   seg, p_blk=p_blk)
+        return AGG.aggregate_rows_sharded(w_rows, buf, shd, seg, p_blk=p_blk)
     return AGG.aggregate(w_rows, buf, col_ids, p_blk=p_blk)
 
 
+def _scatter_mixed(buf: torch.Tensor, row_ids: torch.Tensor, rows,
+                   shd, seg) -> torch.Tensor:
+    """Write the mixed rows back in place: all k rows, or with ``shd`` this
+    rank's segment of them into its own block."""
+    if shd is None:
+        return buf.index_copy_(0, row_ids.long(), rows)
+    if seg[1] > seg[0]:
+        buf.index_copy_(0, shd.local(row_ids[seg[0]:seg[1]]), rows)
+    return buf
+
+
 def mix_flat(buf: torch.Tensor, w_rows: torch.Tensor, row_ids: torch.Tensor,
-             kernels: Optional[KernelConfig] = None) -> torch.Tensor:
+             kernels: Optional[KernelConfig] = None, shd=None,
+             seg=None) -> torch.Tensor:
     """Row-sparse Eq. 4 over the flat buffer, in place: mix the k
-    non-identity rows only (every other row of W is identity)."""
+    non-identity rows only (every other row of W is identity).  With
+    ``shd`` the buffer is this rank's block, ``w_rows`` has zero columns
+    for the padding rows (``pad_w_cols``), and the rank writes back its
+    segment ``seg`` of ``row_ids``."""
     if w_rows.shape[0] == 0:
         return buf
-    return buf.index_copy_(0, row_ids.long(),
-                           _mix_rows(buf, w_rows, None, kernels))
+    return _scatter_mixed(buf, row_ids,
+                          _mix_rows(buf, w_rows, None, kernels, shd, seg),
+                          shd, seg)
 
 
 def mix_flat_cols(buf: torch.Tensor, w_sub: torch.Tensor,
                   row_ids: torch.Tensor, col_ids: torch.Tensor,
-                  kernels: Optional[KernelConfig] = None) -> torch.Tensor:
+                  kernels: Optional[KernelConfig] = None, shd=None,
+                  seg=None) -> torch.Tensor:
     """Column-sparse Eq. 4 over the flat buffer, in place (the default mix
     path): ``w_sub`` (k, u) are the non-identity rows of W restricted to the
     union of their nonzero columns ``col_ids`` (u,); padding columns of
-    ``w_sub`` are zero, so the product is exact."""
+    ``w_sub`` are zero, so the product is exact.  ``shd``/``seg`` as in
+    ``mix_flat``."""
     if w_sub.shape[0] == 0:
         return buf
-    return buf.index_copy_(0, row_ids.long(),
-                           _mix_rows(buf, w_sub, col_ids, kernels))
+    return _scatter_mixed(buf, row_ids,
+                          _mix_rows(buf, w_sub, col_ids, kernels, shd, seg),
+                          shd, seg)
 
 
 # --------------------------------------------------------------------------- #
@@ -408,7 +448,8 @@ def _mix_train_body(buf: torch.Tensor, w_rows: torch.Tensor,
                     train_row_ids: torch.Tensor, train_mask: torch.Tensor,
                     xb, yb, spec: FS.FlatSpec, lr: float,
                     kernels: Optional[KernelConfig], fused_sgd: bool,
-                    with_losses: bool = True, mix_is_train: bool = False
+                    with_losses: bool = True, mix_is_train: bool = False,
+                    shd=None, seg=None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Mix + masked SGD of one round on pre-drawn batches, in place on
     ``buf``.  ``col_ids`` non-None selects the column-sparse contraction;
@@ -417,27 +458,44 @@ def _mix_train_body(buf: torch.Tensor, w_rows: torch.Tensor,
     ``mix_is_train`` (host-verified: the mix row ids EQUAL the train row
     ids, as in every DySTop round) feeds the Eq. 4 output straight into
     Eq. 5, skipping the write-back and re-gather of the same rows.  Returns
-    (buf, per-worker mean losses (N,), zero for idle workers)."""
+    (buf, per-row mean losses (buf rows,), zero for idle rows).
+
+    ``shd`` (a ``sharding.rules.FleetSharding``) runs this rank's share of
+    the round: ``buf`` is its block, ``seg`` its ``(mix_lo, mix_hi,
+    train_lo, train_hi)`` segments of the gathered ids (``shard_segments``),
+    ``xb``/``yb`` the minibatches of its train segment only; it mixes and
+    trains the rows of its block (the mix's all-reduce is the round's one
+    collective) and the losses index its block."""
     n = buf.shape[0]
     k_train = train_row_ids.shape[0]
+    mseg = tseg = None
+    if shd is not None:
+        mseg, tseg = (seg[0], seg[1]), (seg[2], seg[3])
+        train_row_ids = train_row_ids[tseg[0]:tseg[1]]
+        train_mask = train_mask[tseg[0]:tseg[1]]
 
     def train_rows(sub):
         if fused_sgd:
-            return FSGD.fused_sgd(sub, xb, yb, train_mask, spec, lr,
-                                  with_losses=with_losses)
+            sgd = FSGD.fused_sgd if shd is None else FSGD.fused_sgd_sharded
+            return sgd(sub, xb, yb, train_mask, spec, lr,
+                       with_losses=with_losses)
         return local_sgd_flat(sub, xb, yb, train_mask, spec, lr)
 
     losses = torch.zeros((n,), dtype=torch.float32, device=buf.device)
-    tids = train_row_ids.long()
+    tids = (train_row_ids.long() if shd is None
+            else shd.local(train_row_ids))
     if fused_sgd and mix_is_train and k_train > 0 and w_rows.shape[0] > 0:
-        new_sub, sub_loss = train_rows(_mix_rows(buf, w_rows, col_ids,
-                                                 kernels))
+        sub = _mix_rows(buf, w_rows, col_ids, kernels, shd, mseg)
+        if tids.shape[0] == 0:
+            return buf, losses
+        new_sub, sub_loss = train_rows(sub)
     else:
         if col_ids is not None:
-            mix_flat_cols(buf, w_rows, mix_row_ids, col_ids, kernels)
+            mix_flat_cols(buf, w_rows, mix_row_ids, col_ids, kernels, shd,
+                          mseg)
         else:
-            mix_flat(buf, w_rows, mix_row_ids, kernels)
-        if k_train == 0:
+            mix_flat(buf, w_rows, mix_row_ids, kernels, shd, mseg)
+        if tids.shape[0] == 0:
             return buf, losses
         new_sub, sub_loss = train_rows(buf.index_select(0, tids))
     buf.index_copy_(0, tids, new_sub)
@@ -450,41 +508,79 @@ def round_step(buf: torch.Tensor, w_rows: torch.Tensor, ctrl: torch.Tensor,
                xb, yb, *, spec: FS.FlatSpec, lr: float,
                kernels: Optional[KernelConfig] = None,
                col_sparse: bool = False, fused_sgd: bool = False,
-               with_losses: bool = True, mix_is_train: bool = False
-               ) -> Tuple[torch.Tensor, torch.Tensor]:
+               with_losses: bool = True, mix_is_train: bool = False,
+               shd=None, seg=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """One simulated round on the device: sparse mix + local SGD, in place.
 
     ``w_rows`` are the (k, N) non-identity rows of W, or with ``col_sparse``
     the (k, u) rows restricted to the column union; ``ctrl`` is the
     ``pack_round_ctrl`` vector; ``xb`` (k_train, steps, batch, dim) / ``yb``
-    the train rows' minibatches (None when no row trains).  Returns (buf,
-    per-worker mean loss (N,), zero for idle workers)."""
+    the train rows' minibatches (None when no row trains).  ``shd``/``seg``
+    run this rank's share (``_mix_train_body``).  Returns (buf, per-row
+    mean loss, zero for idle rows)."""
     k_mix = w_rows.shape[0]
     u = w_rows.shape[1] if col_sparse and k_mix else 0
     mix_ids, col_ids, train_ids, mask = split_ctrl(ctrl, k_mix, u)
     return _mix_train_body(buf, w_rows, mix_ids, col_ids, train_ids, mask,
                            xb, yb, spec, lr, kernels, fused_sgd, with_losses,
-                           mix_is_train)
+                           mix_is_train, shd, seg)
 
 
 def mega_round_step(buf: torch.Tensor, w_rows: torch.Tensor,
                     ctrl: torch.Tensor, xb, yb, *, spec: FS.FlatSpec,
                     lr: float, kernels: Optional[KernelConfig] = None,
                     col_sparse: bool = False, fused_sgd: bool = False,
-                    with_losses: bool = True, mix_is_train: bool = False
+                    with_losses: bool = True, mix_is_train: bool = False,
+                    shd=None, segs: Optional[np.ndarray] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
     """H horizon-planned rounds back to back, in place on ``buf``.
 
     Inputs are the ``pack_horizon``/``pack_chunk`` stacks — ``w_rows
     (H, K_mix, N | U)``, ``ctrl (H, ·)`` — and the chunk's minibatches
     ``xb (H, K_train, steps, batch, dim)``/``yb`` (None when no row trains).
-    Returns (buf, (H, N) per-round losses)."""
+    With ``shd`` (this rank's share; ``segs`` the (H, 4) ``shard_segments``)
+    the minibatches are those of the rank's train segments, round after
+    round: ``(sum of segment lengths, steps, batch, dim)``.  Returns (buf,
+    (H, buf rows) per-round losses)."""
     losses = []
+    off = 0
     for h in range(w_rows.shape[0]):
+        xh = yh = None
+        if xb is not None:
+            if shd is None:
+                xh, yh = xb[h], yb[h]
+            else:
+                end = off + int(segs[h, 3] - segs[h, 2])
+                xh, yh, off = xb[off:end], yb[off:end], end
         buf, loss = round_step(
-            buf, w_rows[h], ctrl[h], None if xb is None else xb[h],
-            None if yb is None else yb[h], spec=spec, lr=lr,
+            buf, w_rows[h], ctrl[h], xh, yh, spec=spec, lr=lr,
             kernels=kernels, col_sparse=col_sparse, fused_sgd=fused_sgd,
-            with_losses=with_losses, mix_is_train=mix_is_train)
+            with_losses=with_losses, mix_is_train=mix_is_train, shd=shd,
+            seg=None if segs is None else segs[h])
         losses.append(loss)
     return buf, torch.stack(losses)
+
+
+def shard_segments(ctrl: np.ndarray, k_mix: int, u: int, shd) -> np.ndarray:
+    """(H, 4) ``[mix_lo, mix_hi, train_lo, train_hi]`` per round: this
+    rank's segments of the packed mix and train ids (``shd.for_rows``; the
+    packers sort ids by home shard when ``shards > 1``)."""
+    mix_ids, _, train_ids, _ = split_ctrl(ctrl, k_mix, u)
+    segs = np.zeros((ctrl.shape[0], 4), np.int64)
+    for h in range(ctrl.shape[0]):
+        if k_mix:
+            segs[h, :2] = shd.for_rows(mix_ids[h])
+        if train_ids.shape[-1]:
+            segs[h, 2:] = shd.for_rows(train_ids[h])
+    return segs
+
+
+def pad_w_cols(w: np.ndarray, n_pad: int) -> np.ndarray:
+    """Zero-pad the trailing (N) axis of a row-sparse W stack to the sharded
+    buffer's padded row count: the extra columns multiply the permanently
+    idle padding rows by 0, so the contraction value is unchanged (summing
+    exact +0.0 terms) while shapes line up with the (N_pad, P) buffer."""
+    if w.shape[-1] >= n_pad:
+        return w
+    pad = [(0, 0)] * (w.ndim - 1) + [(0, n_pad - w.shape[-1])]
+    return np.pad(w, pad)

@@ -27,6 +27,8 @@ _SIGNATURES = {
 
 
 launches = 0      # CUDA launches of this kernel; callers zero it to count a run
+launches_rows_sharded = 0    # ... of those made by aggregate_rows_sharded
+launches_cols_sharded = 0    # ... of those made by aggregate_rows_cols_sharded
 
 _INT_MAX = 2 ** 31 - 1
 _ROWS_PER_BLOCK = 8              # output rows per CUDA block (csrc kRows)
@@ -123,3 +125,68 @@ def aggregate(W: torch.Tensor, X: torch.Tensor,
     launches += 1
     return Y
 
+
+
+# --------------------------------------------------------------------------- #
+# the mesh twins: the same kernel on each rank's block, plus one all-reduce
+# --------------------------------------------------------------------------- #
+#
+# The ports of ``repro.kernels.aggregate.aggregate_rows_sharded_kernel`` and
+# ``aggregate_rows_cols_sharded_kernel`` (each a ``shard_map`` around
+# ``_panel_matmul``).  ``X`` is this rank's ``(block, P)`` block of the
+# row-partitioned buffer (``sharding.rules.FleetSharding``); ``seg`` is the
+# rank's ``[lo, hi)`` segment of the k gathered output rows
+# (``FleetSharding.for_rows``): the rows of its own block, which it scatters
+# back locally.  The reference splits the k output rows evenly over the
+# shards when S divides k; computing each rank's home segment instead keeps
+# every scatter local and needs no all-gather (gloo has none for CUDA
+# tensors), with the same value for every row.  Each twin's plain version is
+# ``aggregate_plain`` on the whole buffer.
+
+
+def aggregate_rows_sharded(W_rows: torch.Tensor, X: torch.Tensor, shd,
+                           seg, *, p_blk: int = 128) -> torch.Tensor:
+    """Row-sparse Eq. 4 over a row-partitioned buffer: the rows ``[lo, hi)``
+    of ``W_rows @ X_full``.
+
+    ``W_rows`` (k, N_pad) holds the gathered rows of W with the padding
+    columns zero (``worker.pad_w_cols``).  The contraction axis is the
+    sharded axis: each rank multiplies its ``(k, block)`` column block of W
+    with its block by ``aggregate`` (one launch, on a contiguous copy of
+    k * block floats), and one all-reduce of the (k, P) partial products
+    completes every row on every rank."""
+    lo, hi = shd.home
+    Y = aggregate(W_rows[:, lo:hi].contiguous(), X, p_blk=p_blk)
+    if X.device.type == "cuda":
+        global launches_rows_sharded
+        launches_rows_sharded += 1
+    shd.psum(Y)
+    return Y[seg[0]:seg[1]]
+
+
+def aggregate_rows_cols_sharded(W_sub: torch.Tensor, col_ids: torch.Tensor,
+                                X: torch.Tensor, shd, seg, *,
+                                p_blk: int = 128) -> torch.Tensor:
+    """Column-sparse Eq. 4 over a row-partitioned buffer: the rows
+    ``[lo, hi)`` of ``W_sub @ X_full[col_ids]``.
+
+    Each rank gathers the union rows that live in its block (``col_ids``
+    shifted to local ids, the others zero), one all-reduce assembles the
+    (u, P) slab from exactly u rows (each row is nonzero on one rank only,
+    so the slab is exact), and the rank contracts its ``seg`` rows of
+    ``W_sub`` with the slab by ``aggregate`` — one launch, none when the
+    segment is empty."""
+    block = X.shape[0]
+    local = col_ids.long() - shd.home[0]
+    inb = (local >= 0) & (local < block)
+    slab = torch.where(inb[:, None],
+                       X.index_select(0, local.clamp(0, block - 1)), 0.0)
+    shd.psum(slab)
+    lo, hi = seg
+    if hi == lo:
+        return slab.new_empty((0, slab.shape[1]))
+    Y = aggregate(W_sub[lo:hi], slab, p_blk=p_blk)
+    if X.device.type == "cuda":
+        global launches_cols_sharded
+        launches_cols_sharded += 1
+    return Y

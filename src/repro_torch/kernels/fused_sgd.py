@@ -30,6 +30,7 @@ _SIGNATURES = {
 
 
 launches = 0      # CUDA launches of this kernel; callers zero it to count a run
+launches_sharded = 0      # ... of those made by fused_sgd_sharded
 
 def local_sgd_flat_fused(buf: torch.Tensor, xb: torch.Tensor,
                          yb: torch.Tensor, active: torch.Tensor,
@@ -164,3 +165,22 @@ def fused_sgd(buf: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
     launches += 1
     return out, loss
 
+
+def fused_sgd_sharded(buf: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
+                      active: torch.Tensor, spec: FS.FlatSpec, lr: float,
+                      with_losses: bool = True
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 5 on a mesh rank's home rows: the port of
+    ``repro.kernels.fused_sgd.fused_sgd_sharded``.  Local SGD is row-local,
+    so the SPMD program needs no collective: each rank runs ``fused_sgd`` on
+    its own segment of the gathered rows (``FleetSharding.for_rows``) and
+    their minibatches, and a rank with no rows in the segment returns empty
+    results without a launch.  Its plain version is
+    ``local_sgd_flat_fused`` on the whole gathered set."""
+    if buf.shape[0] == 0:
+        return buf.new_empty((0, buf.shape[1])), buf.new_zeros((0,))
+    out = fused_sgd(buf, xb, yb, active, spec, lr, with_losses)
+    if buf.device.type == "cuda":
+        global launches_sharded
+        launches_sharded += 1
+    return out

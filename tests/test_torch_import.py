@@ -31,6 +31,9 @@ def test_port_imports_with_jax_absent():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 15
+    # the mesh slice's modules are among those imported and scanned
+    assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh"} \
+        <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -65,7 +68,8 @@ def test_run_simulation_defaults_to_the_card():
 
 
 @pytest.mark.parametrize("kw, item", [
-    (dict(fused_engine=False), 4), (dict(mesh_shards=2), 5),
+    (dict(fused_engine=False), 4),
+    (dict(mesh_shards=2, fused_engine=False), 4),
     (dict(checkpoint_every=5, checkpoint_dir="snap"), 3),
     (dict(use_kernel=True), 6)])
 def test_unported_paths_name_their_roadmap_item(kw, item):

@@ -246,7 +246,7 @@ def test_run_lm_federation_defaults_to_the_card():
 
 @pytest.mark.parametrize("make, item", [
     (lambda: T_LW.LMRunConfig(resident_fleet=False), 4),
-    (lambda: T_LW.LMRunConfig(mesh_shards=2), 5),
+    (lambda: T_LW.LMRunConfig(mesh_shards=2, resident_fleet=False), 4),
     (lambda: T_LW.LMRunConfig(checkpoint_every=5, checkpoint_dir="snap"), 3),
     (lambda: T_LW.LMRunConfig(use_kernel=True), 6),
     (lambda: T_LW.run_lm_federation(_mech(), _cfg(), T_LW.LMRunConfig(),
