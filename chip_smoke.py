@@ -36,9 +36,14 @@ Phases (any failure raises, and the script exits nonzero with no result):
    in bf16 and f32: the LM path's shape (4, 9, 256, 64) causal with 3 kv
    heads, a ragged S = 200, window 64, softcap 50, (1, 8, 1024, 128), and
    window 0 (every row fully masked, the first rows included) beside a
-   non-causal window of -32 (the last 33 rows fully masked) — f32 to 1e-5
-   absolute, bf16 to 2 bf16 ulps of the larger magnitude after 1e-6 of f32
-   sum-order noise;
+   non-causal window of -32 (the last 33 rows fully masked), and (8, 8,
+   950, 256) with window 300 and softcap 30 (bf16: two warpgroups, the
+   second past S in the last tile); in bf16 only (the f32 kernel must
+   refuse them), the bf16 kernel's lifted limits: D = 112 (kimi-k2), D =
+   32 and B = 70,000 — f32 to 1e-5 absolute, bf16
+   to 2 bf16 ulps of the larger magnitude after 1e-6 of f32 sum-order
+   noise; a bf16 input whose stride or base is not 16-byte aligned must
+   raise without a launch;
 8. zero the launch counters, run the LM fleet's main path at full width —
    ``run_lm_federation(DySTop(V=3.0, t_thre=10, max_neighbors=3),
    smollm_135m.get_config(), LMRunConfig(n_workers=8, n_rounds=30,
@@ -52,7 +57,13 @@ Phases (any failure raises, and the script exits nonzero with no result):
    (2 bf16 ulps) beside its plain version,
    ``scaled_dot_product_attention(is_causal=True)`` and its bound (bytes
    over 3.35 TB/s against flops over the peak for the inputs' type, 989
-   TFLOP/s bf16 or 67 TFLOP/s f32); aggregate over the fleet's real (8, P)
+   TFLOP/s bf16 or 67 TFLOP/s f32), and the same at grok-1-314b's
+   attention widths (1, 48, 4096, 128) with 8 kv heads and no softcap (so
+   the library call computes the same function) and gemma2-2b's (2, 8,
+   4096, 256) with 4 kv heads, softcap 50 and window 4096 (the library
+   call: compiled ``flex_attention`` with the softcap as its score_mod),
+   each held to 2 bf16 ulps first; the library call's own distance from
+   the plain version is reported; aggregate over the fleet's real (8, P)
    buffer (f32 atol and rtol 1e-5) beside its plain version, ``matmul``
    and its bound; then, the fleet freed, profile a 10-round copy of phase
    8: the card's kernel time over that copy's own round-loop wall (its
@@ -146,6 +157,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
 import pathlib
 import statistics
 import subprocess
@@ -342,6 +354,66 @@ def bf16_ulps(got, want, f32_atol: float = 1e-6) -> float:
     mag = torch.maximum(got.abs(), want.abs()).clamp_min(2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     return float(((got - want).abs() - f32_atol).clamp_min(0).div(ulp).max())
+
+
+def flash_long_row(gen, dev, label, b, h, hk, s, d, softcap, window):
+    """Hold the bf16 flash kernel against its plain version at (b, h, s, d)
+    causal on the model's (B, S, H, D) views and time it beside the plain
+    version, its bound and one library call that computes the same function:
+    ``scaled_dot_product_attention`` with the kv heads repeated where there
+    is no softcap and no window, else ``flex_attention`` (compiled) with the
+    softcap as its score_mod, causal and window as its block mask, and the
+    kv heads grouped in place.  The library call's own distance from the
+    plain version is reported."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    bf = torch.bfloat16
+    q = torch.randn((b, s, h, d), generator=gen).to(dev, bf).transpose(1, 2)
+    k = torch.randn((b, s, hk, d), generator=gen).to(dev, bf).transpose(1, 2)
+    v = torch.randn((b, s, hk, d), generator=gen).to(dev, bf).transpose(1, 2)
+    got = FA.flash_attention(q, k, v, True, window, softcap)
+    want = FA.flash_attention_plain(q, k, v, True, window, softcap)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(got.float(), want.float())
+    check(bool(torch.isfinite(got).all()) and ulps <= 2.0,
+          f"flash {label}: {ulps} bf16 ulps")
+    b_ms, b_by = flash_cost(q, k, True, window)
+    row = {"label": label, "shape": [b, h, s, d], "kv_heads": hk,
+           "dtype": str(bf), "causal": True, "window": window,
+           "softcap": softcap, "max_bf16_ulps": ulps,
+           "ms": device_ms(lambda: FA.flash_attention(q, k, v, True, window,
+                                                      softcap), 20),
+           "plain_ms": device_ms(lambda: FA.flash_attention_plain(
+               q, k, v, True, window, softcap), 5),
+           "bound_ms": b_ms, "bound_by": b_by, "library_ms": None}
+    if softcap is None and window is None:
+        k_rep = k.repeat_interleave(h // hk, dim=1)
+        v_rep = v.repeat_interleave(h // hk, dim=1)
+        sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k_rep, v_rep, is_causal=True)
+        row["library_ms"] = device_ms(sdpa, 20)
+        row["library_bf16_ulps"] = bf16_ulps(sdpa().float(), want.float())
+        row["library"] = "scaled_dot_product_attention"
+        return row
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+
+    def keep(b_, h_, q_, k_):
+        inside = k_ <= q_
+        return inside if window is None else inside & (q_ - k_ < window)
+
+    def cap(score, b_, h_, q_, k_):
+        return score if softcap is None else torch.tanh(
+            score / softcap) * softcap
+
+    block = create_block_mask(keep, None, None, s, s, device=dev)
+    flex_c = torch.compile(flex_attention, dynamic=False)
+    flex = lambda: flex_c(q, k, v, score_mod=cap, block_mask=block,
+                          enable_gqa=True)
+    row["library_ms"] = device_ms(flex, 20)
+    row["library_bf16_ulps"] = bf16_ulps(flex().float(), want.float())
+    row["library"] = "flex_attention"
+    return row
 
 
 def ssd_case(gen, g, h, q, n, p, rate, dev):
@@ -1063,13 +1135,20 @@ def main() -> int:
         print("chip_smoke: PyTorch sees no CUDA card", file=sys.stderr)
         return 2
     sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+    # phase 9's flex_attention yardstick is compiled in this process, its
+    # caches inside the checkout's build/ (which .gitignore lists)
+    build_dir = pathlib.Path(__file__).resolve().parent / "build"
+    os.environ.setdefault("TORCHINDUCTOR_CACHE_DIR",
+                          str(build_dir / "torchinductor"))
+    os.environ.setdefault("TRITON_CACHE_DIR", str(build_dir / "triton"))
+    os.environ.setdefault("TORCHINDUCTOR_COMPILE_THREADS", "1")
     import numpy as np
     from repro_torch.core.protocol import DySTop
     from repro_torch.dfl import flat_state as FS
     from repro_torch.dfl import worker as WK
     from repro_torch.dfl.simulator import SimConfig, run_simulation
     from repro_torch.kernels import _build
-    from repro_torch.configs import mamba2_2_7b, smollm_135m
+    from repro_torch.configs import gemma2_2b, mamba2_2_7b, smollm_135m
     from repro_torch.dfl import lm_worker as LW
     from repro_torch.kernels import aggregate as AGG
     from repro_torch.kernels import flash_attention as FA
@@ -1233,17 +1312,29 @@ def main() -> int:
 
     # ---- 7. the flash kernel against its plain version --------------------
     flash_err = flash_ulps = 0.0
-    fa_cases = [("path", (4, 9, 256, 64), 3, True, None, None),
-                ("ragged S=200", (4, 9, 200, 64), 3, True, None, None),
-                ("window 64", (4, 9, 256, 64), 3, True, 64, None),
-                ("softcap 50", (4, 9, 256, 64), 3, True, None, 50.0),
-                ("(1, 8, 1024, 128)", (1, 8, 1024, 128), 8, True, None, None),
+    both, bf16_only = (torch.bfloat16, torch.float32), (torch.bfloat16,)
+    fa_cases = [("path", (4, 9, 256, 64), 3, True, None, None, both),
+                ("ragged S=200", (4, 9, 200, 64), 3, True, None, None, both),
+                ("window 64", (4, 9, 256, 64), 3, True, 64, None, both),
+                ("softcap 50", (4, 9, 256, 64), 3, True, None, 50.0, both),
+                ("(1, 8, 1024, 128)", (1, 8, 1024, 128), 8, True, None, None,
+                 both),
                 ("window 0: all rows masked", (2, 4, 96, 64), 2, True, 0,
-                 None),
+                 None, both),
                 ("non-causal window -32: last rows masked", (2, 4, 160, 64),
-                 2, False, -32, None)]
-    for label, (b, h, s, d), hk, causal, window, softcap in fa_cases:
-        for dtype in (torch.bfloat16, torch.float32):
+                 2, False, -32, None, both),
+                # the bf16 kernel's lifted limits (the f32 kernel refuses
+                # these three)
+                ("D=112 (kimi-k2)", (2, 8, 200, 112), 1, True, None, None,
+                 bf16_only),
+                ("D=32 (smoke widths)", (2, 4, 96, 32), 2, True, None, None,
+                 bf16_only),
+                ("B=70000 (past grid z)", (70000, 1, 16, 64), 1, True, None,
+                 None, bf16_only),
+                ("D=256 (bf16: two warpgroups), S=950, window 300, "
+                 "softcap 30", (8, 8, 950, 256), 4, True, 300, 30.0, both)]
+    for label, (b, h, s, d), hk, causal, window, softcap, dtypes in fa_cases:
+        for dtype in dtypes:
             q = torch.randn((b, s, h, d), generator=gen).to(dev, dtype)
             q = q.transpose(1, 2)          # the model's layout, as a view
             k = torch.randn((b, hk, s, d), generator=gen).to(dev, dtype)
@@ -1267,6 +1358,33 @@ def main() -> int:
                 rows = ~flash_mask(s, causal, window).any(1)
                 check(bool((got[:, :, rows.to(dev)] == 0).all()),
                       f"flash {label}: a fully masked row is not 0")
+            del q, k, v, got, want
+        if dtypes == bf16_only:
+            try:
+                FA.check_sizes(b, h, s, d, torch.float32)
+            except ValueError:
+                pass
+            else:
+                raise RuntimeError(f"chip_smoke: the f32 kernel took {label}")
+    # TMA needs 16-byte-aligned bases and strides: such a bf16 call raises
+    # before any launch, and never falls back
+    before = FA.launches
+    wide = torch.randn((2, 4, 96, 65), generator=gen).to(dev, torch.bfloat16)
+    flat = torch.randn((2 * 4 * 96 * 64 + 1,), generator=gen).to(
+        dev, torch.bfloat16)
+    for label, bad in (("rows 130 bytes apart", wide[..., :64]),
+                       ("base off by 2 bytes",
+                        flat[1:].view(2, 4, 96, 64))):
+        try:
+            FA.flash_attention(bad, bad, bad)
+        except ValueError as e:
+            check("16" in str(e), f"flash misaligned ({label}): {e}")
+        else:
+            raise RuntimeError(f"chip_smoke: flash took a misaligned bf16 "
+                               f"input ({label})")
+    check(FA.launches == before, "flash launched on a misaligned input")
+    print("flash: misaligned bf16 inputs raise (strides, base)")
+    del wide, flat
     sys.stdout.flush()
 
     # ---- 8. the LM fleet's main path at full width, through the kernels ----
@@ -1338,11 +1456,27 @@ def main() -> int:
                 q, k_rep, v_rep, is_causal=causal)),
         "call_ms": call_ms(lambda: FA.flash_attention(q, k, v, causal,
                                                       window, softcap)),
-        "bound_ms": fb_ms, "bound_by": fb_by}
+        "bound_ms": fb_ms, "bound_by": fb_by, "max_bf16_ulps": ulps,
+        "library_bf16_ulps": bf16_ulps(
+            torch.nn.functional.scaled_dot_product_attention(
+                q, k_rep, v_rep, is_causal=causal).float(), want.float())}
     lm_agg_row = lm_aggregate_row(gen, lm_shapes, lm_launches["aggregate"],
                                   fleet.pbuf, "LM")
     agg_err = max(agg_err, lm_agg_row["max_abs_err"])
     del fleet
+    # flash at two published attention widths at S = 4096, beside the path's
+    g_att, m_att = grok_1_314b.get_config(), gemma2_2b.get_config()
+    flash_rows = [dict(flash_row, label="LM path (smollm-135m)")]
+    for label, cfg_, softcap_, window_ in (
+            ("grok-1-314b widths, no softcap", g_att, None, None),
+            ("gemma2-2b widths, softcap, window", m_att,
+             m_att.attn_logit_softcap, m_att.window_size)):
+        flash_rows.append(flash_long_row(
+            gen, dev, label, 1 if cfg_ is g_att else 2, cfg_.n_heads,
+            cfg_.n_kv_heads, 4096, cfg_.resolved_head_dim, softcap_,
+            window_))
+        flash_ulps = max(flash_ulps, flash_rows[-1]["max_bf16_ulps"])
+        print(f"flash {label}: {flash_rows[-1]}", flush=True)
     torch.cuda.empty_cache()
     lm_busy = lm_profile(lm_mech(), lm_cfg, lm_run)
 
@@ -1620,7 +1754,12 @@ def main() -> int:
          "plain_ms": flash_row["plain_ms"], "bound_ms": flash_row["bound_ms"],
          "bound_by": flash_row["bound_by"],
          "library_ms": flash_row["library_ms"],
-         "call_ms": flash_row["call_ms"]},
+         "call_ms": flash_row["call_ms"],
+         "shapes": [{k: r[k] for k in (
+             "label", "shape", "kv_heads", "causal", "window", "softcap",
+             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+             "library", "max_bf16_ulps", "library_bf16_ulps") if k in r}
+             for r in flash_rows]},
         {"name": "ssd_chunk", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/ssd_chunk.cu",
          "replaces": "src/repro/kernels/ssd_chunk.py:62",

@@ -179,6 +179,7 @@ def test_cuda_kernels_match_plain_versions():
 
 from repro_torch.kernels import flash_attention as T_FA  # noqa: E402
 from repro_torch.kernels import ops as T_OPS  # noqa: E402
+from repro_torch.kernels import ref as T_REF  # noqa: E402
 
 _BF16_MANTISSA = 7
 
@@ -195,6 +196,82 @@ def _bf16_ulps(got, want, f32_atol=1e-6):
     return np.maximum(np.abs(got - want) - f32_atol, 0.0) / ulp
 
 
+def _bf16_truncate(x: torch.Tensor) -> torch.Tensor:
+    """f32 -> the bf16 value that keeps its top 16 bits (rounding to 0)."""
+    return (x.view(torch.int32) & -65536).view(torch.float32)
+
+
+def _kernel_rounding(q, k, v, causal=True, window=None, softcap=None,
+                     p_parts=3, tile=64):
+    """The bf16 CUDA flash kernel's arithmetic in plain torch, rounding
+    place by rounding place, for bf16 (B, H, S, D) q and (B, Hk, S, D) k, v.
+
+    bf16 q . k products (exact in f32) summed in f32; the scores softcapped
+    (tanh(s (D^-1/2 / c)) c) or left raw with D^-1/2 moved into the
+    exponent's coefficient; the masks; an online softmax over ``tile``-column
+    tiles in base 2 (p = 2^fma(s, coef, -M), M the row's running max times
+    coef, alpha = 2^(M_old - M_new)); and each tile's P kept as ``p_parts``
+    bf16 parts, each multiplied by bf16 v (exact) into one f32 accumulator.
+    The kernel keeps three (hi and mid truncated, lo rounded from the exact
+    remainder: ~24 bits); ``p_parts`` = 1 rounds P to bf16 once, as a
+    single-product kernel would, and 2 keeps hi truncated and lo rounded.
+    It pins the numeric argument the kernel rests on."""
+    if p_parts not in (1, 2, 3):
+        raise ValueError(f"p_parts must be 1, 2 or 3, got {p_parts}")
+    b, h, s, d = q.shape
+    g = h // k.shape[1]
+    q = q.float()
+    k = k.repeat_interleave(g, dim=1).float()
+    v = v.repeat_interleave(g, dim=1).float()
+    scale = torch.tensor(d ** -0.5, dtype=torch.float32)
+    log2e = torch.tensor(1.4426950408889634, dtype=torch.float32)
+    coef = log2e if softcap is not None else scale * log2e
+    rows = torch.arange(s)[:, None]
+    m = torch.full((b, h, s, 1), T_REF.NEG_INF)
+    big_m = torch.zeros((b, h, s, 1))
+    l = torch.zeros((b, h, s, 1))
+    acc = torch.zeros((b, h, s, d))
+    for k0 in range(0, s, tile):
+        kt, vt = k[:, :, k0:k0 + tile], v[:, :, k0:k0 + tile]
+        sc = q @ kt.transpose(-1, -2)
+        if softcap is not None:
+            cap_scale = scale * (1.0 / torch.tensor(softcap,
+                                                    dtype=torch.float32))
+            sc = torch.tanh(sc * cap_scale) * softcap
+        cols = torch.arange(k0, k0 + kt.shape[2])[None, :]
+        keep = torch.ones((s, kt.shape[2]), dtype=torch.bool)
+        if causal:
+            keep &= cols <= rows
+        if window is not None:
+            keep &= (rows - cols) < window
+        sc = torch.where(keep, sc, T_REF.NEG_INF)
+        mx = torch.maximum(m, sc.amax(-1, keepdim=True))
+        none = mx == T_REF.NEG_INF
+        m_new = mx * coef
+        alpha = torch.where(none, 1.0, torch.where(
+            m == T_REF.NEG_INF, 0.0, torch.exp2(big_m - m_new)))
+        big_m = torch.where(none, big_m, m_new)
+        m_use = torch.where(none, 0.0, m_new)
+        arg = (sc.double() * coef.double() - m_use.double()).float()  # fma
+        p = torch.exp2(arg)
+        m = mx
+        l = alpha * l + p.sum(-1, keepdim=True)
+        if p_parts == 1:
+            parts = [p.bfloat16().float()]
+        else:
+            hi = _bf16_truncate(p)
+            parts = [hi]
+            rest = p - hi
+            if p_parts == 3:
+                parts.append(_bf16_truncate(rest))
+                rest = rest - parts[-1]
+            parts.append(rest.bfloat16().float())
+        pv = sum(part @ vt for part in reversed(parts))   # smallest first
+        acc = acc * alpha + pv
+    return (acc / l.clamp_min(1e-30)).bfloat16()
+
+
+
 def _qkv(seed, b, h, s, d, hk=None):
     rng = np.random.default_rng(seed)
     hk = hk or h
@@ -203,11 +280,15 @@ def _qkv(seed, b, h, s, d, hk=None):
             rng.normal(size=(b, hk, s, d)).astype(np.float32))
 
 
-# (B, H, S, causal, window, softcap): ragged S = 100 and 160 cut the
-# reference's 128-row tiles; window and softcap as the gemma2 layers use them
+# (B, H, S, causal, window, softcap[, D]): ragged S = 100 and 160 cut the
+# reference's 128-row tiles; window and softcap as the gemma2 layers use them;
+# D = 64 unless given: kimi-k2's 112 and the smoke configs' 32, which the bf16
+# kernel pads to 128 and 64 columns in shared memory
 _FLASH_CASES = [(2, 4, 128, True, None, None), (1, 3, 100, True, None, None),
                 (2, 2, 160, True, 48, None), (1, 4, 96, True, None, 30.0),
-                (2, 2, 64, False, None, None), (1, 2, 160, False, 40, 50.0)]
+                (2, 2, 64, False, None, None), (1, 2, 160, False, 40, 50.0),
+                (1, 2, 100, True, None, None, 112),
+                (2, 2, 72, True, 24, 20.0, 32)]
 
 
 @pytest.mark.parametrize("case", _FLASH_CASES,
@@ -218,8 +299,8 @@ def test_flash_plain_matches_pallas(case, dtype):
     import jax.numpy as jnp
     from repro.kernels import flash_attention as R_FA
     from repro.kernels import ref as R_REF
-    b, h, s, causal, window, softcap = case
-    q, k, v = _qkv(b * 1000 + s, b, h, s, 64)
+    b, h, s, causal, window, softcap, *d = case
+    q, k, v = _qkv(b * 1000 + s, b, h, s, d[0] if d else 64)
     tdt = getattr(torch, dtype)
     got = T_FA.flash_attention(*(torch.from_numpy(a).to(tdt)
                                  for a in (q, k, v)),
@@ -295,13 +376,80 @@ def test_flash_checks_its_inputs():
         T_FA.flash_attention(q, q[:, :3], q[:, :3])
     with pytest.raises(ValueError, match="must be \\(B, Hk, S, D\\)"):
         T_FA.flash_attention(q, q[:, :, :4], q[:, :, :4])
+    # bf16 (TMA pads D in shared memory): any multiple of 8 up to 256
+    for d in (8, 32, 96, 112, 256):
+        T_FA.check_sizes(1, 4, 8, d, torch.bfloat16)
+    for d in (100, 264):
+        with pytest.raises(ValueError, match="head_dim"):
+            T_FA.check_sizes(1, 4, 8, d, torch.bfloat16)
+    # f32 (the CUDA-core kernel's template instances): 64, 128, 256 only
     with pytest.raises(ValueError, match="head_dim"):
-        T_FA.check_sizes(1, 4, 8, 96)
+        T_FA.check_sizes(1, 4, 8, 96, torch.float32)
     with pytest.raises(ValueError, match="32-bit row"):
-        T_FA.check_sizes(1, 4, 2 ** 31 - 10, 64)
+        T_FA.check_sizes(1, 4, 2 ** 31 - 10, 64, torch.bfloat16)
+    # bf16's grid is 1-D: B past the old 65,535 (grid z) is taken; f32's is not
+    T_FA.check_sizes(70_000, 4, 8, 64, torch.bfloat16)
     with pytest.raises(ValueError, match="grid"):
-        T_FA.check_sizes(70_000, 4, 8, 64)
-    T_FA.check_sizes(4, 9, 256, 64)
+        T_FA.check_sizes(70_000, 4, 8, 64, torch.float32)
+    with pytest.raises(ValueError, match="32-bit grid"):
+        T_FA.check_sizes(2 ** 20, 2 ** 11, 64, 64, torch.bfloat16)
+    T_FA.check_sizes(4, 9, 256, 64, torch.bfloat16)
+    T_FA.check_sizes(4, 9, 256, 64, torch.float32)
+    with pytest.raises(ValueError, match="f32 or bf16"):
+        T_FA.check_sizes(4, 9, 256, 64, torch.float16)
+
+
+@pytest.mark.parametrize("shift, strides, ok", [
+    (0, (9 * 256 * 64, 64, 9 * 64, 1), True),     # the model's (B, S, H, D)
+    (0, (4 * 8 * 112, 8 * 112, 112, 1), True),     # D = 112, contiguous
+    (2, (9 * 256 * 64, 64, 9 * 64, 1), False),     # base off by one bf16
+    (0, (4 * 8 * 65, 8 * 65, 65, 1), False),       # rows 130 bytes apart
+    (0, (4 * 8 * 64, 8 * 64, 64, 2), False)])      # D not contiguous
+def test_flash_bf16_alignment_check(shift, strides, ok):
+    """TMA reads 16-byte-aligned bases and strides only: the wrapper raises
+    on a bf16 CUDA call that lacks them, and never falls back.  Strides of
+    dimensions of extent 1 are never stepped and are not checked."""
+    shape = (2, 9, 256, 64)
+    if ok:
+        T_FA.check_alignment("q", 0x7F0000000000 + shift, shape, strides, 2)
+    else:
+        with pytest.raises(ValueError, match="16|contiguous"):
+            T_FA.check_alignment("q", 0x7F0000000000 + shift, shape,
+                                 strides, 2)
+    T_FA.check_alignment("q", 0x7F0000000000, (1, 1, 1, 64), (3, 5, 7, 1), 2)
+
+
+# (B, H, S, D, Hk), causal, window, softcap: the shapes at which the kernel's
+# rounding places are held to the 2-ulp gate.  Short causal rows (S = 16)
+# give P few, large terms, where a part's rounding error is largest.
+_P_PART_CASES = [((4, 9, 256, 64, 3), True, None, None),     # the LM path
+                 ((1, 4, 256, 128, 2), True, None, None),    # D^-1/2 not 2^n
+                 ((1, 2, 256, 256, 1), True, 100, 50.0),     # gemma2's D
+                 ((500, 1, 16, 64, 1), True, None, None)]    # S = 16 rows
+
+
+@pytest.mark.parametrize("shape, causal, window, softcap", _P_PART_CASES,
+                         ids=["path-d64", "d128", "d256-softcap", "s16-rows"])
+def test_flash_bf16_split_p_rounding_within_two_ulps(shape, causal, window,
+                                                     softcap):
+    """The numeric argument the bf16 kernel rests on: with P kept as three
+    bf16 parts (~24 bits) its rounding places stay within the 2-bf16-ulp
+    gate of the f32 plain version on the same bf16 inputs.  P rounded to one
+    bf16 part, as a single-product kernel would, or kept as two (~16 bits,
+    2^-18 relative per term) moves outputs near 0 past the gate on the short
+    rows.  Prints the worst distance for 1, 2 and 3 parts (``pytest -s``)."""
+    b, h, s, d, hk = shape
+    q, k, v = (torch.from_numpy(a).bfloat16()
+               for a in _qkv(s + d, b, h, s, d, hk=hk))
+    want = T_FA.flash_attention_plain(q, k, v, causal, window, softcap)
+    worst = [float(_bf16_ulps(_kernel_rounding(
+        q, k, v, causal, window, softcap, p_parts=n).float().numpy(),
+        want.float().numpy()).max()) for n in (1, 2, 3)]
+    print(f"{shape} window={window} softcap={softcap}: worst bf16 ulps with "
+          f"1, 2, 3 parts of P: {worst}")
+    assert worst[2] <= 2.0, worst
+    if s == 16:
+        assert worst[0] > 100 and worst[1] > 2.0, worst
 
 
 @pytest.mark.parametrize("p, ok", [(2 ** 31 - 128, True),
@@ -327,7 +475,9 @@ def test_cuda_flash_kernel_matches_plain_version():
     cases = [((4, 9, 256, 64, 3), "bfloat16", True, None, None),
              ((1, 4, 200, 64, 4), "float32", True, None, None),
              ((2, 4, 160, 128, 2), "float32", True, 64, 50.0),
-             ((1, 2, 130, 256, 2), "bfloat16", False, None, None)]
+             ((1, 2, 130, 256, 2), "bfloat16", False, None, None),
+             ((2, 8, 200, 112, 1), "bfloat16", True, None, None),   # kimi-k2
+             ((1, 48, 4096, 128, 8), "bfloat16", True, None, None)]  # grok
     for (b, h, s, d, hk), dtype, causal, window, softcap in cases:
         q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dtype))
                    for a in _qkv(s + d, b, h, s, d, hk=hk))
@@ -348,4 +498,4 @@ def test_cuda_flash_kernel_matches_plain_version():
         got, T_FA.flash_attention_plain(x.transpose(1, 2), kv.transpose(1, 2),
                                         kv.transpose(1, 2)),
         atol=1e-5, rtol=0)
-    assert T_FA.launches - before == 5
+    assert T_FA.launches - before == 7
