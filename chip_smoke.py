@@ -15,9 +15,17 @@ Phases (any failure raises, and the script exits nonzero with no result):
    main path's shapes (N = 100 workers, P = 6,922 parameters): the Eq. 4
    ``aggregate`` over every (k, u) bucket, column-sparse (with repeated,
    zero-weighted padding columns and u = N) and row-sparse, to f32 atol and
-   rtol 1e-5; the Eq. 5 ``fused_sgd`` at k in {8, 16, 100}, with losses on
+   rtol 1e-5; at k in {8, 100, 128, 200}, at P % 4 in {0, 1, 2, 3} and at a
+   base 4 bytes off 16 (the load width follows the alignment), the plain
+   version's values and the same bits as the 4-wide loads give on the same
+   columns, and an out-of-range column id turning every output NaN; the Eq. 5
+   ``fused_sgd`` at k in {8, 16, 100}, with losses on
    and off, to atol 1e-4 after 2 steps (the sums run in another order than
    the plain version's batched products), inactive rows bit-identical;
+2b. ``aggregate`` past 2^31 columns: k = 2 rows of an (N = 2, P = 2^31 +
+   4,096) buffer (X and Y 17.2 GB each), the column windows at the start,
+   across 2^31 and at the end held against ``aggregate_plain`` on the same
+   windows (f32 atol and rtol 1e-5), timed beside its bound; freed after;
 3. zero the launch counters, run ``run_simulation(DySTop(V=10, t_thre=20),
    SimConfig())`` at the defaults on the card, read the counters (both
    kernels must have launched) and check that accuracy rose;
@@ -25,8 +33,9 @@ Phases (any failure raises, and the script exits nonzero with no result):
    device-side sleep, so the time is the card's and not the host's) beside
    its plain version, one PyTorch library call where one computes the same
    function, and its bound — the larger of the bytes it must move over
-   3.35 TB/s and its flops over 67 TFLOP/s f32 — at the shapes the main path
-   launched most;
+   3.35 TB/s and its flops over 67 TFLOP/s f32 — at every shape the main
+   path launched (``aggregate`` also on a (1, 1) x (1, 128) call beside one
+   PyTorch elementwise launch: the floor of this timing);
 5. run a 60-round copy of the config on the card and on the CPU: the
    control plane must match exactly and the accuracy curve within 1e-3
    (both runs draw identical batches);
@@ -77,7 +86,10 @@ Phases (any failure raises, and the script exits nonzero with no result):
    with TF32 off, to atol and rtol 2e-4 (the JAX package's own kernel
    tolerance), outputs finite: the mamba2 path's shape (G, H, Q, N, P) =
    (8, 80, 256, 128, 64) on the model's head-major views, the smoke shape,
-   a ragged Q = 200, and a large ``dt`` whose masked exponents pass 88;
+   a ragged Q = 200, a large ``dt`` whose masked exponents pass 88, and a
+   ``cum_la`` that rises (a random walk; a spike that would overflow a
+   decay split at a tile's first row), held on the rows the plain version
+   gives finite;
 12. zero the launch counters, run the LM fleet on mamba2-2.7b at full width
    and 8 of its 64 layers — ``run_lm_federation(DySTop(V=3.0, t_thre=10,
    max_neighbors=3), replace(mamba2_2_7b.get_config(), n_layers=8),
@@ -494,8 +506,8 @@ def lm_aggregate_row(gen, shapes, launches: int, buf, label: str) -> dict:
           f"fleet's buffer: max |err| {err:.3e}", flush=True)
     lib_cid = None if cid is None else cid.long()
     return {
-        "k": k, "u": u, "col_sparse": col, "P": p, "rounds": count,
-        "launches": launches, "max_abs_err": err,
+        "label": label, "k": k, "u": u, "col_sparse": col, "P": p,
+        "rounds": count, "launches": launches, "max_abs_err": err,
         "ms": device_ms(lambda: AGG.aggregate(W, buf, cid), reps=10),
         "plain_ms": device_ms(lambda: AGG.aggregate_plain(W, buf, cid),
                               reps=10),
@@ -1197,6 +1209,45 @@ def main() -> int:
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     print(f"aggregate: {len(buckets) * 6} bucket cases match the plain "
           f"version, max |err| {agg_err:.3e}", flush=True)
+    # k past 8 rows of a block and every P % 4 (the load width follows P
+    # and the base address): the plain version's values, and the bits the
+    # 4-wide loads give on the same columns
+    wide = torch.randn((N_WORKERS, 6924), generator=gen).to(dev)
+    flat = torch.empty((N_WORKERS * 6920 + 1,), device=dev)
+    x_cases = [(f"P={p_}", wide[:, :p_].contiguous())
+               for p_ in (6920, 6921, 6922, 6923)]
+    x_cases.append(("P=6920, base 4 bytes off 16", flat[1:].view(N_WORKERS,
+                                                                 6920)))
+    x_cases[-1][1].copy_(wide[:, :6920])
+    n_width = 0
+    for k in (8, 100, 128, 200):
+        for col in (True, False):
+            W, cid = agg_case(gen, k, 64 if col else N_WORKERS, N_WORKERS,
+                              col, dev)
+            ref = AGG.aggregate(W, wide, cid)
+            for label, Xp in x_cases:
+                got = AGG.aggregate(W, Xp, cid)
+                want = AGG.aggregate_plain(W, Xp, cid)
+                torch.cuda.synchronize()
+                agg_err = max(agg_err, float((got - want).abs().max()))
+                torch.testing.assert_close(
+                    got, want, atol=1e-5, rtol=1e-5,
+                    msg=lambda m: f"aggregate k={k} {label}: {m}")
+                check(torch.equal(got.view(torch.int32),
+                                  ref[:, :Xp.shape[1]].view(torch.int32)),
+                      f"aggregate's bits change with the load width at "
+                      f"k={k}, {label}, col_sparse={col}")
+                n_width += 1
+    W, cid = agg_case(gen, 100, 64, N_WORKERS, True, dev)
+    bad = cid.clone()
+    bad[5] = N_WORKERS
+    check(bool(torch.isnan(AGG.aggregate(W, X, bad)).all()),
+          "aggregate: an out-of-range column id did not turn the outputs NaN")
+    del wide, flat, x_cases
+    print(f"aggregate: {n_width} cases at k in 8..200, P % 4 in 0..3 and a "
+          f"misaligned base match the plain version with the 4-wide bits, "
+          f"an out-of-range id gives NaN, max |err| {agg_err:.3e}",
+          flush=True)
 
     sgd_err = 0.0
     steps, batch = cfg.local_steps, cfg.batch_size
@@ -1220,6 +1271,36 @@ def main() -> int:
                   "fused_sgd reported losses with with_losses=False")
     print(f"fused_sgd: 6 cases match the plain version, max |err| "
           f"{sgd_err:.3e}", flush=True)
+
+    # ---- 2b. aggregate past 2^31 columns -----------------------------------
+    big_p = 2 ** 31 + 4096
+    Xb = torch.empty((2, big_p), device=dev)
+    Xb.normal_(generator=torch.Generator(dev).manual_seed(7))
+    Wb = torch.rand((2, 2), generator=gen).to(dev)
+    windows = (0, 2 ** 31 - 2048, big_p - 4096)
+    Yb = AGG.aggregate(Wb, Xb)
+    torch.cuda.synchronize()
+    big_err = 0.0
+    for lo in windows:
+        got = Yb[:, lo:lo + 4096]
+        want = AGG.aggregate_plain(Wb, Xb[:, lo:lo + 4096].contiguous())
+        check(bool(torch.isfinite(got).all()),
+              f"aggregate past 2^31 columns: non-finite at column {lo}")
+        big_err = max(big_err, float((got - want).abs().max()))
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    del Yb, got
+    bb_ms, bb_by = agg_cost(2, Wb.cpu(), None, big_p, 2)
+    big_row = {"label": "past 2^31 columns", "k": 2, "u": 2,
+               "col_sparse": False, "P": big_p, "max_abs_err": big_err,
+               "ms": device_ms(lambda: AGG.aggregate(Wb, Xb), reps=3),
+               "bound_ms": bb_ms, "bound_by": bb_by}
+    agg_err = max(agg_err, big_err)
+    del Xb, Wb
+    torch.cuda.empty_cache()
+    print(f"aggregate past 2^31 columns (k=2, N=2, P={big_p}): windows at "
+          f"0, 2^31 - 2048 and P - 4096 match the plain version, max |err| "
+          f"{big_err:.3e}; {big_row['ms']:.3f} ms, bound {bb_ms:.3f} ms "
+          f"({bb_by})", flush=True)
 
     # ---- 3. the main path, through the kernels -----------------------------
     shapes: Counter = Counter()
@@ -1260,7 +1341,8 @@ def main() -> int:
         b_ms, b_by = agg_cost(k, W.cpu(), None if cid is None else cid.cpu(),
                               P, N_WORKERS)
         return {
-            "k": k, "u": u, "col_sparse": col, "rounds": count,
+            "label": "sim", "k": k, "u": u, "col_sparse": col,
+            "rounds": count,
             "ms": device_ms(lambda: AGG.aggregate(W, X, cid)),
             "plain_ms": device_ms(lambda: AGG.aggregate_plain(W, X, cid)),
             "library_ms": device_ms(
@@ -1272,6 +1354,11 @@ def main() -> int:
     agg_shapes = sorted(((s, c) for s, c in shapes.items()
                          if s[0] == "aggregate"), key=lambda sc: -sc[1])
     agg_rows = [agg_row(s[1], s[2], s[3], c) for s, c in agg_shapes]
+    # what this timing cannot go below: a call with next to no work, and one
+    # PyTorch elementwise launch
+    W1, X1 = torch.ones((1, 1), device=dev), torch.ones((1, 128), device=dev)
+    agg_floor = {"ms": device_ms(lambda: AGG.aggregate(W1, X1)),
+                 "torch_add_ms": device_ms(lambda: X1.add_(0.0))}
     sgd_shapes = sorted(((s, c) for s, c in shapes.items()
                          if s[0] == "fused_sgd"), key=lambda sc: -sc[1])
     sgd_rows = []
@@ -1505,7 +1592,36 @@ def main() -> int:
         ssd_err = max(ssd_err, err)
         torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
         print(f"ssd_chunk {label}: max |err| {err:.3e}", flush=True)
-    del ins, got, want
+    # cum_la that rises, which the model never feeds but the plain version
+    # takes: a falling wave that rises in places, and a spike to 100 at the
+    # second query tile's first row, where a decay split at that row would
+    # overflow (exp(100)) in rows whose plain values are finite; rows the
+    # plain version gives non-finite (the spike's own) are left out
+    Bc, Cc, _, xb = ssd_case(gen, 2, 8, 256, 128, 64, 0.1, dev)
+    qs = torch.arange(256, dtype=torch.float32)
+    wave = (torch.sin(qs / 8) - 0.08 * qs).expand(2, 8, 256).contiguous()
+    spike = torch.zeros((2, 8, 256))
+    spike[..., 64] = 100.0
+    spike[..., 65:] = -2.0 - 0.08 * (qs[65:] - 64)
+    for label, la_, n_bad in (("cum_la a wave", wave, 0),
+                              ("cum_la spiking at q = 64", spike, 16)):
+        la_ = la_.to(dev)
+        got = SC.ssd_chunk(Bc, Cc, la_, xb)
+        want = SC.ssd_chunk_plain(Bc, Cc, la_, xb)
+        torch.cuda.synchronize()
+        rows = torch.isfinite(want).all(-1)
+        check(int((~rows).sum()) == n_bad,
+              f"ssd {label}: {int((~rows).sum())} non-finite plain rows")
+        check(bool(torch.isfinite(got[rows]).all()),
+              f"ssd {label}: non-finite where the plain version is finite")
+        err = float((got[rows] - want[rows]).abs().max())
+        ssd_err = max(ssd_err, err)
+        torch.testing.assert_close(got[rows], want[rows], atol=2e-4,
+                                   rtol=2e-4)
+        print(f"ssd_chunk {label}: max |err| {err:.3e} (relative to the "
+              f"largest value {float(want[rows].abs().max()):.3e})",
+              flush=True)
+    del ins, got, want, Bc, Cc, xb
 
     # ---- 12. the mamba2 LM path at full width, through the kernels --------
     m_cfg = dataclasses.replace(mamba2_2_7b.get_config(), n_layers=8)
@@ -1733,7 +1849,9 @@ def main() -> int:
          "plain_ms": top_agg["plain_ms"], "bound_ms": top_agg["bound_ms"],
          "bound_by": top_agg["bound_by"],
          "library_ms": top_agg["library_ms"], "call_ms": top_agg["call_ms"],
-         "lm": lm_agg_row},
+         "lm": lm_agg_row,
+         "shapes": agg_rows + [lm_agg_row, m_agg_row, big_row],
+         "floor": agg_floor},
         {"name": "fused_sgd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_sgd.cu",
          "replaces": "src/repro/kernels/fused_sgd.py:112",

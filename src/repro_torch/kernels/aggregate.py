@@ -21,8 +21,8 @@ from repro_torch.kernels import _build
 _SIGNATURES = {
     "repro_aggregate_f32": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p]),
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_longlong,
+        ctypes.c_int, ctypes.c_void_p]),
 }
 
 
@@ -31,8 +31,9 @@ launches_rows_sharded = 0    # ... of those made by aggregate_rows_sharded
 launches_cols_sharded = 0    # ... of those made by aggregate_rows_cols_sharded
 
 _INT_MAX = 2 ** 31 - 1
-_ROWS_PER_BLOCK = 8              # output rows per CUDA block (csrc kRows)
+_GRID_X_MAX = 2 ** 31 - 1
 _GRID_Y_MAX = 65535
+_ROWS_PER_BLOCK = 8              # output rows per CUDA block, at most
 
 def aggregate_plain(W: torch.Tensor, X: torch.Tensor,
                     col_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
@@ -65,20 +66,19 @@ def _check(W, X, col_ids) -> None:
 
 
 def check_sizes(k: int, n_in: int, n_rows: int, p: int, p_blk: int) -> None:
-    """Raise unless the CUDA kernel's 32-bit sizes hold this call.  The C
-    entry takes every size as an ``int`` (ctypes would cut a larger value
-    silently) and indexes a column as ``blockIdx.x * blockDim.x +
-    threadIdx.x``, which reaches ``P + p_blk - 1``; the grid's y axis holds
-    ``ceil(k / 8)`` row blocks."""
+    """Raise unless the CUDA kernel takes this call.  k, n_in and N are C
+    ints; P and every column offset are 64-bit, so only the grid bounds P:
+    at most 2^31 - 1 blocks of ``p_blk`` columns on x (counted as if no load
+    were wider than one float) and 65,535 blocks of 8 rows on y."""
     for name, v in (("k", k), ("n_in", n_in), ("N", n_rows)):
         if not 0 < v <= _INT_MAX:
             raise ValueError(f"aggregate: {name}={v} is outside the kernel's "
-                             f"32-bit sizes")
-    if p + p_blk - 1 > _INT_MAX:
-        raise ValueError(
-            f"aggregate: P={p} parameter columns overflow the kernel's 32-bit "
-            f"column index (P + p_blk - 1 must be <= {_INT_MAX}); split the "
-            f"buffer's columns across calls")
+                             f"C int sizes")
+    if p <= 0:
+        raise ValueError(f"aggregate: P={p} parameter columns")
+    if -(-p // p_blk) > _GRID_X_MAX:
+        raise ValueError(f"aggregate: P={p} columns need more than "
+                         f"{_GRID_X_MAX} blocks of {p_blk} columns")
     if -(-k // _ROWS_PER_BLOCK) > _GRID_Y_MAX:
         raise ValueError(f"aggregate: k={k} rows need more than "
                          f"{_GRID_Y_MAX} row blocks")
@@ -91,10 +91,10 @@ def aggregate(W: torch.Tensor, X: torch.Tensor,
 
     ``col_ids`` (n_in,) int32, or None for ``n_in == N`` and the identity
     gather.  CPU tensors run ``aggregate_plain``.  CUDA tensors launch the
-    kernel with ``p_blk`` columns per block (``KernelConfig.agg_p_blk``) and
+    kernel with ``p_blk`` threads per block (``KernelConfig.agg_p_blk``) and
     need contiguous f32 ``W``/``X`` and contiguous int32 ``col_ids``; an
-    index outside ``[0, N)`` turns the affected outputs NaN.  Counts its
-    kernel launches in the module's ``launches``."""
+    index outside ``[0, N)`` turns the outputs NaN.  Counts its kernel
+    launches in the module's ``launches``."""
     _check(W, X, col_ids)
     if X.device.type == "cpu":
         return aggregate_plain(W, X, col_ids)

@@ -17,10 +17,11 @@ _MAX_THREADS = 1024
 
 @dataclasses.dataclass(frozen=True)
 class KernelConfig:
-    """``agg_p_blk``: parameter columns per thread block of the Eq. 4
-    ``aggregate`` kernel, one column per thread — a multiple of the 32-thread
-    warp so every load of a block is whole coalesced warps, and at most 1024
-    (the per-block thread limit)."""
+    """``agg_p_blk``: threads per block of the Eq. 4 ``aggregate`` kernel,
+    each thread on up to 4 adjacent parameter columns (as many as the
+    buffer's alignment allows) — a multiple of the 32-thread warp so every
+    load of a block is whole coalesced warps, and at most 1024 (the
+    per-block thread limit)."""
     agg_p_blk: int = 128
 
     def __post_init__(self):

@@ -11,7 +11,13 @@ over Bc, Cc (G, Q, N) shared by the heads, cum_la (G, H, Q) and xbar
 ``ref.ssd_chunk_plain``.  Unlike the TPU kernel's wrapper it needs no
 transposes: every input takes (g, h, q) strides with a unit last dimension,
 so the model's (B, nc, Q, H, P) views go in as they are, and y comes back
-laid out like xbar.
+laid out like xbar.  The call launches two kernels: the causal tiles of the
+head-shared score C B^T into a (G, Qp, Qp) scratch this wrapper allocates
+(Qp = Q rounded up to 64), then one block per (64 query rows, head, g).
+Below the diagonal tile the kernel splits the decay at the tile's first
+row where ``cum_la`` falls along the chunk, as the model's cumulative log
+decays do, and takes each pair's exponent directly otherwise, so it takes
+any ``cum_la``, as the plain version does.
 """
 from __future__ import annotations
 
@@ -25,12 +31,12 @@ from repro_torch.kernels.ref import ssd_chunk_plain
 __all__ = ["ssd_chunk", "ssd_chunk_plain", "launches"]
 
 _SIGNATURES = {"repro_ssd_chunk_f32": (
-    ctypes.c_int, [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5
+    ctypes.c_int, [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5
     + [ctypes.c_longlong] * 13 + [ctypes.c_void_p])}
 HEAD_DIMS = (16, 32, 64, 128)    # P: the kernel's template instances
-MAX_CHUNK = 512                  # Q: the score panel stays in shared memory
-HEADS_PER_BLOCK = 8              # csrc kHeads
-_GRID_YZ_MAX = 65535
+MAX_CHUNK = 512                  # Q: csrc kMaxQ (a block's key factors)
+Q_TILE = 64                      # csrc kBQ: query rows per block
+_GRID_Z_MAX = 65535
 _INT_MAX = 2 ** 31 - 1
 
 launches = 0      # CUDA launches of this kernel; callers zero it to count a run
@@ -52,20 +58,22 @@ def _check(Bc, Cc, cum_la, xbar) -> None:
 
 
 def check_sizes(g: int, h: int, q: int, n: int, p: int) -> None:
-    """Raise unless the kernel's launch takes (G, H, Q, N, P): P one of
-    ``HEAD_DIMS``, Q at most ``MAX_CHUNK``, G and the head groups within the
-    grid's z and y limits, N inside a C int."""
+    """Raise unless the kernels' launches take (G, H, Q, N, P): P one of
+    ``HEAD_DIMS``, Q at most ``MAX_CHUNK``, G within the score kernel's
+    grid z, one block per (query tile, head, g) within a 1-D grid, N and
+    H inside a C int."""
     if p not in HEAD_DIMS:
         raise ValueError(f"ssd_chunk: the CUDA kernel takes head_dim P in "
                          f"{HEAD_DIMS}, got {p}")
     if not 0 < q <= MAX_CHUNK:
         raise ValueError(f"ssd_chunk: chunk Q={q} must be in [1, "
-                         f"{MAX_CHUNK}] (the score panel in shared memory)")
-    if not (0 < g <= _GRID_YZ_MAX
-            and 0 < -(-h // HEADS_PER_BLOCK) <= _GRID_YZ_MAX):
-        raise ValueError(f"ssd_chunk: G={g} and H={h} must fit the CUDA "
-                         f"grid (G and H / {HEADS_PER_BLOCK} each in [1, "
-                         f"{_GRID_YZ_MAX}])")
+                         f"{MAX_CHUNK}]")
+    if not 0 < g <= _GRID_Z_MAX:
+        raise ValueError(f"ssd_chunk: G={g} must be in [1, {_GRID_Z_MAX}] "
+                         f"(the score kernel's grid z)")
+    if not 0 < h <= _INT_MAX or -(-q // Q_TILE) * g * h > _INT_MAX:
+        raise ValueError(f"ssd_chunk: G={g}, H={h} and Q={q} need more than "
+                         f"{_INT_MAX} blocks (one per query tile, head and g)")
     if not 0 < n <= _INT_MAX:
         raise ValueError(f"ssd_chunk: N={n} is outside a C int")
 
@@ -95,13 +103,16 @@ def ssd_chunk(Bc: torch.Tensor, Cc: torch.Tensor, cum_la: torch.Tensor,
     n = Bc.shape[2]
     check_sizes(g, h, q, n, p)
     y = torch.empty_like(xbar)         # xbar's strides where it is dense
+    qp = -(-q // Q_TILE) * Q_TILE
+    scores = torch.empty((g, qp, qp), dtype=torch.float32,
+                         device=xbar.device)
     strides = (*Bc.stride()[:2], *Cc.stride()[:2], *cum_la.stride(),
                *xbar.stride()[:3], *y.stride()[:3])
     lib = _build.load("ssd_chunk", _SIGNATURES)
     with torch.cuda.device(xbar.device):
         err = lib.repro_ssd_chunk_f32(
             Bc.data_ptr(), Cc.data_ptr(), cum_la.data_ptr(), xbar.data_ptr(),
-            y.data_ptr(), g, h, q, n, p, *strides,
+            y.data_ptr(), scores.data_ptr(), g, h, q, n, p, *strides,
             torch.cuda.current_stream(xbar.device).cuda_stream)
     if err:
         raise RuntimeError(f"ssd_chunk kernel launch failed: CUDA error {err} "

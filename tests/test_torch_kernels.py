@@ -145,12 +145,15 @@ def test_cuda_kernels_match_plain_versions():
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     before = (T_AGG.launches, T_FSGD.launches)
-    for k, u, col in [(8, 8, True), (16, N, True), (N, N, False)]:
+    n_agg = 0
+    for k, u, col in [(8, 8, True), (16, N, True), (N, N, False),
+                      (32, 16, True), (64, N, True)]:
         W, X, cid = (None if a is None else torch.from_numpy(a).to(dev)
                      for a in _agg_inputs(k + u, k, u, col))
         got = T_AGG.aggregate(W, X, cid)
         torch.testing.assert_close(got, T_AGG.aggregate_plain(W, X, cid),
                                    atol=1e-5, rtol=1e-5)
+        n_agg += 1
     # more columns of W than one shared-memory tile holds (n_in > 128)
     g = torch.Generator().manual_seed(0)
     W = torch.rand((20, 300), generator=g).to(dev) / 300
@@ -158,6 +161,35 @@ def test_cuda_kernels_match_plain_versions():
     torch.testing.assert_close(T_AGG.aggregate(W, X),
                                T_AGG.aggregate_plain(W, X),
                                atol=1e-5, rtol=1e-5)
+    n_agg += 1
+    # k in {32, 64, 100, 128, 200} and P % 4 in {0, 1, 2, 3} (the load width
+    # follows P and the base); the widths give the same bits
+    for k in (32, 64, 100, 128, 200):
+        W = torch.rand((k, 100), generator=g).to(dev) / 100
+        X = torch.randn((100, 6924), generator=g).to(dev)
+        wide = T_AGG.aggregate(W, X)
+        n_agg += 1
+        for p in (6920, 6921, 6922, 6923):
+            Xp = X[:, :p].contiguous()
+            got = T_AGG.aggregate(W, Xp)
+            n_agg += 1
+            torch.testing.assert_close(got, T_AGG.aggregate_plain(W, Xp),
+                                       atol=1e-5, rtol=1e-5)
+            assert torch.equal(got.view(torch.int32),
+                               wide[:, :p].view(torch.int32)), (k, p)
+    # a base 4 bytes off 16 (4-byte copies), and an index outside [0, N)
+    flat = torch.randn((100 * 6920 + 1,), generator=g).to(dev)
+    X = flat[1:].view(100, 6920)
+    cid = torch.arange(100, dtype=torch.int32, device=dev)
+    for k in (8, 100):
+        W = torch.rand((k, 100), generator=g).to(dev) / 100
+        torch.testing.assert_close(T_AGG.aggregate(W, X, cid),
+                                   T_AGG.aggregate_plain(W, X, cid),
+                                   atol=1e-5, rtol=1e-5)
+        bad = cid.clone()
+        bad[7] = 100
+        assert torch.isnan(T_AGG.aggregate(W, X, bad)).all()
+        n_agg += 2
     # the sim defaults, and hidden = 256: 136 KB of activations per block
     for with_losses, hidden in ((True, 64), (False, 64), (True, 256)):
         stacked, xb, yb, active = _sgd_inputs(3, 16, 2, 32, dim=32,
@@ -170,7 +202,8 @@ def test_cuda_kernels_match_plain_versions():
         torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
         torch.testing.assert_close(loss, ref_loss, atol=1e-4, rtol=0)
         assert torch.equal(out[a == 0], buf[a == 0])
-    assert (T_AGG.launches - before[0], T_FSGD.launches - before[1]) == (4, 3)
+    assert (T_AGG.launches - before[0],
+            T_FSGD.launches - before[1]) == (n_agg, 3)
 
 
 # --------------------------------------------------------------------------- #
@@ -452,17 +485,39 @@ def test_flash_bf16_split_p_rounding_within_two_ulps(shape, causal, window,
         assert worst[0] > 100 and worst[1] > 2.0, worst
 
 
-@pytest.mark.parametrize("p, ok", [(2 ** 31 - 128, True),
-                                   (2 ** 31 - 127, False),
-                                   (2_614_341_888, False)])
-def test_aggregate_rejects_columns_past_32_bits(p, ok):
-    """The kernel's C ints cover P + p_blk - 1 <= 2^31 - 1; a bigger fleet
-    (gemma2-2b's P is ~2.6e9) is refused instead of wrapping."""
+@pytest.mark.parametrize("k, p, ok", [
+    (8, 2 ** 31 - 128, True),
+    (8, 2 ** 31 - 127, True),
+    (8, 2_614_341_888, True),          # gemma2-2b's full-depth P
+    (100, 2_614_341_888, True),
+    (8, 128 * (2 ** 31 - 1), True),    # the most blocks of p_blk = 128
+    (8, 128 * (2 ** 31 - 1) + 1, False)])
+def test_aggregate_rejects_columns_past_32_bits(k, p, ok):
+    """Columns are 64-bit, so P past 2^31 (full-depth fleets such as
+    gemma2-2b's ~2.6e9) is taken; only a grid of more than 2^31 - 1 column
+    blocks is refused."""
     if ok:
-        T_AGG.check_sizes(8, 16, 8, p, 128)
+        T_AGG.check_sizes(k, 16, 8, p, 128)
     else:
-        with pytest.raises(ValueError, match="32-bit column index"):
-            T_AGG.check_sizes(8, 16, 8, p, 128)
+        with pytest.raises(ValueError, match="blocks of 128"):
+            T_AGG.check_sizes(k, 16, 8, p, 128)
+
+
+def test_aggregate_row_limits_and_devices():
+    """The grid holds 65,535 blocks of 8 rows, k, n_in and N are C ints, and
+    a tensor on neither the CPU nor a card is refused: the kernel never
+    falls back to the plain version there."""
+    T_AGG.check_sizes(8 * 65535, 8, 8, 64, 128)
+    with pytest.raises(ValueError, match="row blocks"):
+        T_AGG.check_sizes(8 * 65535 + 1, 8, 8, 64, 128)
+    with pytest.raises(ValueError, match="C int"):
+        T_AGG.check_sizes(8, 2 ** 31, 8, 64, 128)
+    with pytest.raises(ValueError, match="P=0"):
+        T_AGG.check_sizes(8, 8, 8, 0, 128)
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="no kernel for device meta"):
+        T_AGG.aggregate(torch.ones((2, 3), device=meta),
+                        torch.ones((3, 5), device=meta))
 
 
 @pytest.mark.cuda

@@ -163,6 +163,21 @@ def test_ssd_chunk_checks_its_inputs():
     T_SC.check_sizes(8, 80, 256, 128, 64)
 
 
+@pytest.mark.parametrize("g, h, q, ok", [
+    (8, 80, 256, True),                 # the mamba2 path
+    (1, 524_288 * 8, 64, True),         # H past the old 65,535 head groups
+    (65_535, 4096, 512, True),          # 2^31 - 2^19 blocks of the 1-D grid
+    (65_535, 4097, 512, False)])        # past 2^31 - 1
+def test_ssd_chunk_grid_limits(g, h, q, ok):
+    """One block per (query tile of 64 rows, head, g) on a 1-D grid: H is no
+    longer bounded by a grid axis, only the block count by 2^31 - 1."""
+    if ok:
+        T_SC.check_sizes(g, h, q, 128, 64)
+    else:
+        with pytest.raises(ValueError, match="blocks"):
+            T_SC.check_sizes(g, h, q, 128, 64)
+
+
 # --------------------------------------------------------------------------- #
 # the model
 # --------------------------------------------------------------------------- #
@@ -343,8 +358,13 @@ def test_cuda_ssd_chunk_matches_plain_version():
     assert not torch.backends.cuda.matmul.allow_tf32   # IEEE f32 plain
     dev = torch.device("cuda")
     before = T_SC.launches
+    # the path's shape, the smoke shape, ragged Q (200, 100, 1, 300), H that
+    # no head grouping divides, N not a multiple of the 32-column stage, and
+    # every P; a large dt whose masked exponents pass 88
     cases = [((8, 80, 256, 128, 64), 0.1), ((4, 16, 32, 32, 32), 0.1),
-             ((2, 3, 200, 40, 16), 0.1), ((2, 9, 256, 128, 128), 2.0)]
+             ((2, 3, 200, 40, 16), 0.1), ((2, 9, 256, 128, 128), 2.0),
+             ((3, 7, 100, 30, 32), 0.1), ((1, 5, 512, 64, 128), 0.05),
+             ((2, 3, 1, 8, 16), 0.1), ((1, 11, 300, 128, 64), 0.1)]
     for (g, h, q, n, p), rate in cases:
         ins = [a.to(dev) for a in _t(*_ssd_inputs(q + p, g, h, q, n, p,
                                                   rate))]
@@ -352,6 +372,15 @@ def test_cuda_ssd_chunk_matches_plain_version():
         want = T_SC.ssd_chunk_plain(*ins)
         assert torch.isfinite(got).all()
         torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    # xbar whose base is 4 bytes off 16 (4-byte copies instead of 16)
+    Bc, Cc, la, xb = (a.to(dev) for a in _t(*_ssd_inputs(7, 2, 4, 96, 32,
+                                                          64)))
+    flat = torch.empty((xb.numel() + 1,), device=dev)
+    xb_off = flat[1:].view(xb.shape)
+    xb_off.copy_(xb)
+    torch.testing.assert_close(T_SC.ssd_chunk(Bc, Cc, la, xb_off),
+                               T_SC.ssd_chunk_plain(Bc, Cc, la, xb),
+                               atol=2e-4, rtol=2e-4)
     # the model's layout: head-major views of (G, Q, H, .) tensors
     Bc, Cc, la, xb = (a.to(dev) for a in _t(*_ssd_inputs(5, 4, 10, 64, 32,
                                                           64)))
@@ -361,4 +390,23 @@ def test_cuda_ssd_chunk_matches_plain_version():
     assert got.stride() == xb_v.stride()
     torch.testing.assert_close(got, T_SC.ssd_chunk_plain(Bc, Cc, la, xb),
                                atol=2e-4, rtol=2e-4)
-    assert T_SC.launches - before == len(cases) + 1
+    # cum_la that rises: a falling wave that rises in places, and a spike to
+    # 100 at q = 64, where a decay split at the tile's first row would
+    # overflow in rows whose plain values are finite (only the spike's own
+    # rows are not)
+    Bc, Cc, _, xb = (a.to(dev) for a in _t(*_ssd_inputs(3, 2, 8, 256, 128,
+                                                          64)))
+    qs = np.arange(256, dtype=np.float32)
+    wave = np.broadcast_to(np.sin(qs / 8) - 0.08 * qs, (2, 8, 256)).copy()
+    spike = np.zeros((2, 8, 256), np.float32)
+    spike[..., 64], spike[..., 65:] = 100.0, -2.0 - 0.08 * (qs[65:] - 64)
+    for la, n_bad in ((wave, 0), (spike, 16)):
+        la = torch.from_numpy(la).to(dev)
+        got = T_SC.ssd_chunk(Bc, Cc, la, xb)
+        want = T_SC.ssd_chunk_plain(Bc, Cc, la, xb)
+        rows = torch.isfinite(want).all(-1)
+        assert int((~rows).sum()) == n_bad
+        assert torch.isfinite(got[rows]).all()
+        torch.testing.assert_close(got[rows], want[rows], atol=2e-4,
+                                   rtol=2e-4)
+    assert T_SC.launches - before == len(cases) + 4
