@@ -19,9 +19,11 @@ Phases (any failure raises, and the script exits nonzero with no result):
    base 4 bytes off 16 (the load width follows the alignment), the plain
    version's values and the same bits as the 4-wide loads give on the same
    columns, and an out-of-range column id turning every output NaN; the Eq. 5
-   ``fused_sgd`` at k in {8, 16, 100}, with losses on
-   and off, to atol 1e-4 after 2 steps (the sums run in another order than
-   the plain version's batched products), inactive rows bit-identical;
+   ``fused_sgd`` at k in {8, 16, 100}, at batch 30, at widths 20-48-36-7
+   and at 50 steps, with losses on and off, to atol 1e-4 (the sums run in
+   another order than the plain version's batched products), inactive rows
+   bit-identical, the same bits on a second launch and for a row alone as
+   among k;
 2b. ``aggregate`` past 2^31 columns: k = 2 rows of an (N = 2, P = 2^31 +
    4,096) buffer (X and Y 17.2 GB each), the column windows at the start,
    across 2^31 and at the end held against ``aggregate_plain`` on the same
@@ -319,6 +321,14 @@ def sgd_case(gen, k, steps, batch, dim, classes, dev, p):
     return buf.to(dev), xb.to(dev), yb.to(dev), active.to(dev)
 
 
+def mlp_stacked(d: int, h: int, g: int, c: int):
+    """A one-row stacked MLP of widths d-h-g-c (only its shapes are used)."""
+    import torch
+    return {"b1": torch.zeros((1, h)), "b2": torch.zeros((1, g)),
+            "b3": torch.zeros((1, c)), "w1": torch.zeros((1, d, h)),
+            "w2": torch.zeros((1, h, g)), "w3": torch.zeros((1, g, c))}
+
+
 def sgd_cost(spec, active, k, steps, batch, with_losses):
     shp = dict(zip(spec.keys, spec.shapes))
     (d, h), (_, g), (_, c) = shp["w1"], shp["w2"], shp["w3"]
@@ -572,6 +582,23 @@ def router_logits(gen, t: int, e: int, dev):
     x[3, -1] = float(x[3].max()) + 1.0
     x[3, :2] = x[3, -1]
     return x.to(dev)
+
+
+def router_tie_logits(t: int, e: int, dev):
+    """(T, E) logits in which every row ties: all equal, a maximum repeated
+    at two indices, half at +1e4 and half at -1e4, and distinct logits that
+    all underflow to probability 0 beside one leader (rising with the index,
+    so a pick on logits would take the highest index first), in turn."""
+    import torch
+    rows = torch.empty((4, e))
+    rows[0] = 1.0
+    rows[1] = -5.0
+    rows[1, [1, e - 1]] = 2.0
+    rows[2, : e // 2] = 1e4
+    rows[2, e // 2:] = -1e4
+    rows[3] = -200.0 - 0.5 * (e - torch.arange(e, dtype=torch.float32))
+    rows[3, e // 3] = 50.0
+    return rows.repeat((t + 3) // 4, 1)[:t].contiguous().to(dev)
 
 
 def router_cost(t: int, e: int, k: int):
@@ -1079,9 +1106,10 @@ def mesh_checks(n_sh: int, ranks: list, spawn_wall: float, hist, lm10_hist,
     return run_out
 
 
-def mesh_kernel_rows(mesh_runs: dict) -> list:
+def mesh_kernel_rows(mesh_runs: dict, sgd_floor: dict) -> list:
     """Row 3 of the kernel table (the three twins) for the ``{"kernels"}``
-    line, from phase 19's timings and phases 20-21's launch counts."""
+    line, from phase 19's timings and phases 20-21's launch counts (and
+    phase 4's floor of the fused_sgd timing)."""
     def twin_launches(name):
         return sum(r["launches"][name] for run_out in mesh_runs.values()
                    for part in ("sim", "lm") if part in run_out
@@ -1137,6 +1165,7 @@ def mesh_kernel_rows(mesh_runs: dict) -> list:
                     "shards": 2, "shape": {"k": tw2[0]["sgd_time"]["k"],
                                            "with_losses": False},
                     "library_ms": None, "bit_identical_to_kernel": True,
+                    "floor": sgd_floor,
                     "s4": [t["sgd_time"] for t in mesh_runs[4]["twins"]]}),
     ]
 
@@ -1251,14 +1280,23 @@ def main() -> int:
 
     sgd_err = 0.0
     steps, batch = cfg.local_steps, cfg.batch_size
-    for k in (8, 16, N_WORKERS):
+    n_sgd = 0
+    # the path's MLP at k in {8, 16, 100}, a batch the cluster does not
+    # divide, widths other than the default and 50 steps (each step's
+    # minibatch is copied in while the step before runs)
+    odd_spec = FS.spec_of(mlp_stacked(20, 48, 36, 7))
+    sgd_cases = [(k, batch, spec, steps) for k in (8, 16, N_WORKERS)]
+    sgd_cases += [(N_WORKERS, 30, spec, steps),
+                  (N_WORKERS, batch, odd_spec, steps), (8, batch, spec, 50)]
+    for k, b_, sp, st in sgd_cases:
+        d_, c_ = sp.shapes[sp.keys.index("w1")][0], sp.shapes[-1][-1]
         for with_losses in (True, False):
-            buf, xb, yb, active = sgd_case(gen, k, steps, batch,
-                                           cfg.dim, 10, dev, P)
-            out, loss = FSGD.fused_sgd(buf, xb, yb, active, spec, cfg.lr,
+            buf, xb, yb, active = sgd_case(gen, k, st, b_, d_, c_, dev,
+                                           sp.n_params)
+            out, loss = FSGD.fused_sgd(buf, xb, yb, active, sp, cfg.lr,
                                        with_losses=with_losses)
             ref, ref_loss = FSGD.local_sgd_flat_fused(
-                buf, xb, yb, active, spec, cfg.lr, with_losses=with_losses)
+                buf, xb, yb, active, sp, cfg.lr, with_losses=with_losses)
             torch.cuda.synchronize()
             sgd_err = max(sgd_err, float((out - ref).abs().max()),
                           float((loss - ref_loss).abs().max()))
@@ -1269,8 +1307,29 @@ def main() -> int:
                   "fused_sgd changed an inactive row")
             check(with_losses or torch.equal(loss, torch.zeros_like(loss)),
                   "fused_sgd reported losses with with_losses=False")
-    print(f"fused_sgd: 6 cases match the plain version, max |err| "
-          f"{sgd_err:.3e}", flush=True)
+            # the same bits on a second launch, and a row's bits alone equal
+            # its bits among k rows
+            again, again_loss = FSGD.fused_sgd(buf, xb, yb, active, sp,
+                                               cfg.lr, with_losses)
+            check(torch.equal(out, again) and torch.equal(loss, again_loss),
+                  f"fused_sgd k={k} batch={b_}: a second launch gave other "
+                  f"bits")
+            for i in sorted({0, k // 3, k - 1}):
+                one, one_loss = FSGD.fused_sgd(
+                    buf[i:i + 1], xb[i:i + 1], yb[i:i + 1], active[i:i + 1],
+                    sp, cfg.lr, with_losses)
+                check(torch.equal(one[0], out[i])
+                      and torch.equal(one_loss[0], loss[i]),
+                      f"fused_sgd: row {i}'s bits alone differ from its bits "
+                      f"among k={k} (batch {b_})")
+            n_sgd += 1
+    sgd_smem = FSGD.smem_bytes(batch, cfg.dim, cfg.hidden, cfg.hidden, 10)
+    print(f"fused_sgd: {n_sgd} cases (k in 8..100, batch 30, widths "
+          f"20-48-36-7, 50 steps) match the plain version, max |err| "
+          f"{sgd_err:.3e}; "
+          f"the same bits on a second launch and for rows alone; "
+          f"{FSGD.cluster_size(batch)} CTAs per row, {sgd_smem} B of shared "
+          f"memory each", flush=True)
 
     # ---- 2b. aggregate past 2^31 columns -----------------------------------
     big_p = 2 ** 31 + 4096
@@ -1361,21 +1420,47 @@ def main() -> int:
                  "torch_add_ms": device_ms(lambda: X1.add_(0.0))}
     sgd_shapes = sorted(((s, c) for s, c in shapes.items()
                          if s[0] == "fused_sgd"), key=lambda sc: -sc[1])
+    # the path's shapes first (commonest first), then the rest of k in
+    # {8, 16, 100} with losses on and off; beside each, the floor of this
+    # timing for fused_sgd (one row, one step of a 1-1-1-2 MLP: at batch 1
+    # a one-CTA launch with next to no work, at batch 4 a 4-CTA cluster
+    # with next to no work) and one PyTorch launch
+    tiny_spec = FS.spec_of(mlp_stacked(1, 1, 1, 2))
+    tiny = sgd_case(gen, 1, 1, 1, 1, 2, dev, tiny_spec.n_params)
+    tiny4 = sgd_case(gen, 1, 1, 4, 1, 2, dev, tiny_spec.n_params)
+    sgd_floor = {"ms": device_ms(lambda: FSGD.fused_sgd(
+        *tiny, tiny_spec, cfg.lr, False)),
+        "cluster4_ms": device_ms(lambda: FSGD.fused_sgd(
+            *tiny4, tiny_spec, cfg.lr, False)),
+        "torch_add_ms": agg_floor["torch_add_ms"]}
+    sgd_keys = [s[1:] for s, _ in sgd_shapes]
+    sgd_keys += [(k, wl) for k in (8, 16, N_WORKERS) for wl in (False, True)
+                 if (k, wl) not in sgd_keys]
     sgd_rows = []
-    for s, c in sgd_shapes:
-        k, with_losses = s[1], s[2]
+    for k, with_losses in sgd_keys:
         buf, xb, yb, active = sgd_case(gen, k, steps, batch, cfg.dim,
                                        10, dev, P)
         b_ms, b_by = sgd_cost(spec, active, k, steps, batch, with_losses)
         sgd_rows.append({
-            "k": k, "with_losses": with_losses, "rounds": c,
+            "k": k, "with_losses": with_losses,
+            "rounds": shapes[("fused_sgd", k, with_losses)],
             "ms": device_ms(lambda: FSGD.fused_sgd(
                 buf, xb, yb, active, spec, cfg.lr, with_losses)),
             "plain_ms": device_ms(lambda: FSGD.local_sgd_flat_fused(
                 buf, xb, yb, active, spec, cfg.lr, with_losses)),
             "call_ms": call_ms(lambda: FSGD.fused_sgd(
                 buf, xb, yb, active, spec, cfg.lr, with_losses)),
-            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None})
+            "bound_ms": b_ms, "bound_by": b_by, "library_ms": None,
+            "floor_ms": sgd_floor["ms"],
+            "floor_cluster4_ms": sgd_floor["cluster4_ms"],
+            "torch_add_ms": sgd_floor["torch_add_ms"]})
+        r_ = sgd_rows[-1]
+        print(f"fused_sgd k={k} losses={'on' if with_losses else 'off'} "
+              f"({r_['rounds']} rounds): {r_['ms']:.5f} ms, plain "
+              f"{r_['plain_ms']:.4f} ms, bound {b_ms:.6f} ms ({b_by}), floor "
+              f"{sgd_floor['ms']:.5f} ms (4-CTA cluster "
+              f"{sgd_floor['cluster4_ms']:.5f}, a PyTorch launch "
+              f"{sgd_floor['torch_add_ms']:.5f})", flush=True)
 
     # ---- 5. the card and the CPU agree --------------------------------------
     short = SimConfig(n_rounds=60)
@@ -1696,8 +1781,14 @@ def main() -> int:
 
     # ---- 15. the moe_router kernel against its plain version --------------
     router_err = 0.0
-    for t_, e_, k_ in ((8, 8, 2), (4096, 8, 2), (4096, 384, 8), (300, 8, 2)):
-        x = router_logits(gen, t_, e_, dev)
+    router_cases = [(t_, e_, k_, False) for t_, e_, k_ in (
+        (8, 8, 2), (4096, 8, 2), (4096, 384, 8), (300, 8, 2))]
+    # grok's E = 8 (four rows share a warp) and E = 16 (two) with every row
+    # a tie
+    router_cases += [(64, 8, 2, True), (64, 16, 4, True)]
+    for t_, e_, k_, ties in router_cases:
+        x = (router_tie_logits(t_, e_, dev) if ties
+             else router_logits(gen, t_, e_, dev))
         gates, ids = MR.moe_router(x, k_)
         p_gates, p_ids = MR.moe_router_plain(x, k_)
         torch.cuda.synchronize()
@@ -1708,8 +1799,9 @@ def main() -> int:
         err = float((gates - p_gates).abs().max())
         check(err <= 1e-6, f"moe_router ({t_}, {e_}, {k_}): |err| {err}")
         router_err = max(router_err, err)
-        print(f"moe_router ({t_}, {e_}, {k_}): ids identical, max |gate err| "
-              f"{err:.3e}", flush=True)
+        tie_note = ", every row a tie" if ties else ""
+        print(f"moe_router ({t_}, {e_}, {k_}{tie_note}): ids identical, max "
+              f"|gate err| {err:.3e}", flush=True)
 
     # ---- 16. serving grok-1-314b at full width, through the kernels -------
     for mod in (AGG, FSGD, FA, SC, MR):
@@ -1780,6 +1872,9 @@ def main() -> int:
 
     # ---- 17. moe_router timed at the path's shape and kimi's --------------
     router_rows = []
+    x1 = torch.ones((1, 1), device=dev)          # a call with no work
+    router_floor = {"ms": device_ms(lambda: MR.moe_router(x1, 1)),
+                    "torch_add_ms": agg_floor["torch_add_ms"]}
     for t_, e_, k_ in ((8, 8, 2), (4096, 384, 8)):
         x = router_logits(gen, t_, e_, dev)
         rb_ms, rb_by = router_cost(t_, e_, k_)
@@ -1788,11 +1883,12 @@ def main() -> int:
             "ms": device_ms(lambda: MR.moe_router(x, k_)),
             "plain_ms": device_ms(lambda: MR.moe_router_plain(x, k_)),
             "call_ms": call_ms(lambda: MR.moe_router(x, k_)),
-            "bound_ms": rb_ms, "bound_by": rb_by, "library_ms": None})
+            "bound_ms": rb_ms, "bound_by": rb_by, "library_ms": None,
+            "floor_ms": router_floor["ms"]})
         print(f"moe_router at ({t_}, {e_}, {k_}): "
-              f"{router_rows[-1]['ms']:.4f} ms, plain "
+              f"{router_rows[-1]['ms']:.5f} ms, plain "
               f"{router_rows[-1]['plain_ms']:.4f} ms, bound {rb_ms:.6f} ms "
-              f"({rb_by})", flush=True)
+              f"({rb_by}), floor {router_floor['ms']:.5f} ms", flush=True)
     del g_eng, g_params
     torch.cuda.empty_cache()
 
@@ -1860,7 +1956,8 @@ def main() -> int:
          "ms": top_sgd["ms"], "kernel_ms": top_sgd["ms"],
          "plain_ms": top_sgd["plain_ms"], "bound_ms": top_sgd["bound_ms"],
          "bound_by": top_sgd["bound_by"], "library_ms": None,
-         "call_ms": top_sgd["call_ms"]},
+         "call_ms": top_sgd["call_ms"], "floor": sgd_floor,
+         "shapes": sgd_rows},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:102",
@@ -1896,9 +1993,10 @@ def main() -> int:
          "plain_ms": router_rows[0]["plain_ms"],
          "bound_ms": router_rows[0]["bound_ms"],
          "bound_by": router_rows[0]["bound_by"], "library_ms": None,
-         "call_ms": router_rows[0]["call_ms"], "kimi": router_rows[1]},
+         "call_ms": router_rows[0]["call_ms"], "kimi": router_rows[1],
+         "floor": router_floor},
     ]
-    kernels += mesh_kernel_rows(mesh_runs)
+    kernels += mesh_kernel_rows(mesh_runs, sgd_floor)
     print(json.dumps({"mesh": {
         "backend": "gloo", "device": "cuda:0 shared by every rank",
         "sim_config": "SimConfig() defaults with mesh_shards=S, "

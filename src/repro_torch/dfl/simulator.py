@@ -38,6 +38,7 @@ from repro_torch.dfl import worker as WK
 from repro_torch.dfl.network import (EdgeNetwork, NetworkConfig,
                                      heterogeneous_compute_times)
 from repro_torch.dfl.pipeline import DispatchPipeline
+from repro_torch.kernels import fused_sgd as FSGD
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.launch import mesh as MESH
 from repro_torch.sharding.rules import FleetSharding
@@ -296,6 +297,10 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
                 f"run_simulation: init has {buf.shape[0]} workers of leaf "
                 f"shapes {flat_spec.shapes}; the config needs "
                 f"{cfg.n_workers} of {want.shapes}")
+    fused_sgd = cfg.fused_local_sgd and WK.fused_sgd_supported(flat_spec)
+    if fused_sgd and dev.type == "cuda":
+        # an MLP the kernel cannot hold is refused here, not in round 1
+        FSGD.check_sizes(flat_spec, cfg.local_steps, cfg.batch_size)
     model_bytes = WK.param_bytes(FS.unravel_row(buf[0], flat_spec)) \
         * cfg.model_bytes_scale
     exp_link_time = net.expected_link_time(model_bytes)
@@ -332,7 +337,6 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
         hist.mesh_backend = shd.mesh.backend
     bound_log = {"active": [], "W": []} if record_history_for_bound else None
     horizon = cfg.scan_horizon
-    fused_sgd = cfg.fused_local_sgd and WK.fused_sgd_supported(flat_spec)
     pipe = DispatchPipeline(cfg.pipeline_depth)
     on_card = dev.type == "cuda"
 

@@ -3,8 +3,9 @@
 The port of ``repro.kernels.fused_sgd.fused_sgd`` (a TPU kernel) and of the
 JAX engine's jnp lowering ``repro.dfl.worker.local_sgd_flat_fused``, which is
 this module's plain version.  ``fused_sgd`` launches ``csrc/fused_sgd.cu`` on
-CUDA tensors (one block per gathered worker row) and runs
-``local_sgd_flat_fused`` on CPU tensors.
+CUDA tensors (one thread-block cluster per gathered worker row, the row
+resident in shared memory for all steps) and runs ``local_sgd_flat_fused``
+on CPU tensors.
 """
 from __future__ import annotations
 
@@ -17,14 +18,15 @@ from repro_torch.dfl import flat_state as FS
 from repro_torch.kernels import _build
 
 LEAVES = ("b1", "b2", "b3", "w1", "w2", "w3")   # FlatSpec column order
-SMEM_LIMIT = 232448                    # dynamic shared memory of one block
+SMEM_LIMIT = 232448           # csrc kSmemLimit: dynamic shared memory a block
+MAX_CLUSTER = 4               # csrc kMaxCluster: CTAs per row
 
 _SIGNATURES = {
     "repro_fused_sgd_f32": (ctypes.c_int, [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.POINTER(ctypes.c_int), ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p]),
+        ctypes.c_float, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+        ctypes.c_int, ctypes.POINTER(ctypes.c_int), ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p]),
     "repro_fused_sgd_smem_bytes": (ctypes.c_longlong, [ctypes.c_int] * 5),
 }
 
@@ -92,6 +94,38 @@ def local_sgd_flat_fused(buf: torch.Tensor, xb: torch.Tensor,
     return out, loss
 
 
+def cluster_size(batch: int) -> int:
+    """CTAs of the thread-block cluster that trains one row: follows the
+    batch alone, never the number of rows, so a row's bits do not either."""
+    return min(MAX_CLUSTER, batch)
+
+
+def smem_bytes(batch: int, d: int, h: int, g: int, c: int) -> int:
+    """Dynamic shared memory one CTA of the CUDA kernel needs for an MLP of
+    widths d-h-g-c at this batch, at any number of steps: the row, two
+    steps' minibatches and one step's activations of the whole batch, as
+    ``csrc/fused_sgd.cu`` lays them out (builds the kernel's library)."""
+    lib = _build.load("fused_sgd", _SIGNATURES)
+    return int(lib.repro_fused_sgd_smem_bytes(batch, d, h, g, c))
+
+
+def check_sizes(spec: FS.FlatSpec, steps: int, batch: int) -> None:
+    """Raise unless the CUDA kernel takes this MLP at these sizes: steps and
+    batch >= 1 and ``smem_bytes`` within ``SMEM_LIMIT`` (the row stays
+    resident in each CTA's shared memory).  At batch 32, dim 32 and 10
+    classes that is hidden <= 164; any number of steps."""
+    if steps < 1 or batch < 1:
+        raise ValueError(f"fused_sgd: the CUDA kernel needs steps >= 1 and "
+                         f"batch >= 1, got steps={steps}, batch={batch}")
+    d, h, g, c = _layout(spec)[6:]
+    need = smem_bytes(batch, d, h, g, c)
+    if need > SMEM_LIMIT:
+        raise ValueError(f"fused_sgd: the row (widths {d}-{h}-{g}-{c}), two "
+                         f"minibatches of {batch} and one step's activations "
+                         f"need {need} B of shared memory, a block has "
+                         f"{SMEM_LIMIT}")
+
+
 def _layout(spec: FS.FlatSpec):
     if spec.keys != LEAVES:
         raise ValueError(f"fused_sgd: spec leaves {spec.keys} are not the "
@@ -144,20 +178,20 @@ def fused_sgd(buf: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
     steps, batch = xb.shape[1], xb.shape[2]
     if xb.shape[3] != d:
         raise ValueError(f"fused_sgd: xb dim {xb.shape[3]} != w1 rows {d}")
+    check_sizes(spec, steps, batch)
     lib = _build.load("fused_sgd", _SIGNATURES)
-    smem = lib.repro_fused_sgd_smem_bytes(batch, *layout[6:])
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused_sgd: one step's activations need {smem} B "
-                         f"of shared memory, a block has {SMEM_LIMIT}")
-    scale = (active.float() * lr).contiguous()
+    # the kernel scales each row by active * lr itself (f32, as the plain
+    # version rounds it): no extra launch when active is a contiguous f32
+    active = active.float().contiguous()
     out = torch.empty((k, p), dtype=torch.float32, device=buf.device)
     loss = torch.empty((k,), dtype=torch.float32, device=buf.device)
     c_layout = (ctypes.c_int * 10)(*layout)
     with torch.cuda.device(buf.device):
         err = lib.repro_fused_sgd_f32(
-            buf.data_ptr(), xb.data_ptr(), yb.data_ptr(), scale.data_ptr(),
-            out.data_ptr(), loss.data_ptr(), k, p, c_layout, steps, batch,
-            int(with_losses), torch.cuda.current_stream(buf.device).cuda_stream)
+            buf.data_ptr(), xb.data_ptr(), yb.data_ptr(), active.data_ptr(),
+            lr, out.data_ptr(), loss.data_ptr(), k, p, c_layout, steps, batch,
+            int(with_losses),
+            torch.cuda.current_stream(buf.device).cuda_stream)
     if err:
         raise RuntimeError(f"fused_sgd kernel launch failed: CUDA error {err} "
                            f"(k={k}, P={p}, steps={steps}, batch={batch})")

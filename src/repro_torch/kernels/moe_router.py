@@ -5,11 +5,12 @@ The port of ``repro.kernels.moe_router.moe_router``: f32 logits (T, E) ->
 gates (T, k) f32, renormalised to sum 1 (``max(sum, 1e-9)``), and expert ids
 (T, k) int32, the k largest probabilities in descending order with the
 lowest index winning a tie.  On a CUDA tensor ``moe_router`` launches
-``csrc/moe_router.cu`` (one warp per token row, the row in registers,
-warp-shuffle max, sum and arg-max); on a CPU tensor it runs
-``ref.moe_router_plain``.  The kernel's bound is the launch itself: a row
-moves 4 E + 8 k bytes (384 bytes a call at the grok-1 decode shape T = 8,
-E = 8, k = 2).
+``csrc/moe_router.cu`` (a warp per token row, or a segment of 8 or 16 lanes
+per row for E <= 16; the row in registers, shuffle max and sum, each lane's
+candidates sorted once, then one arg-max over the lanes' heads per round);
+on a CPU tensor it runs ``ref.moe_router_plain``.  The kernel's bound is the
+launch itself at the decode shape: a row moves 4 E + 8 k bytes (384 bytes a
+call at the grok-1 decode shape T = 8, E = 8, k = 2).
 """
 from __future__ import annotations
 
