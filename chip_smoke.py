@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port of DySTop on one card: the simulation plane,
 the LM fleet over two model families (dense: smollm-135m; ssm:
-mamba2-2.7b), serving (grok-1-314b, the moe family, at full width), and the
+mamba2-2.7b), serving (grok-1-314b, the moe family, at full width), the
 fleet mesh (``mesh_shards`` = 2 and 4 gloo ranks sharing the card) on the
-simulation plane and the LM fleet.
+simulation plane and the LM fleet, the Table-I arena (DySTop against four
+baselines), Theorem 1's bound, and snapshots with resume on both planes.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -161,11 +162,47 @@ fails the whole call.
    reports the wall, the all-reduce time per round and each rank's peak
    memory.
 
+Phases 22-25 run the Table-I arena, the convergence bound and snapshots:
+
+22. the arena's headline cell (``benchmarks/arena.py::main``'s phi 0.4
+   clean cell with ``benchmarks/common.py::run_mech``'s settings, copied
+   into ``ARENA_CFG``: 24 workers, a 6,000-round cap, 4,000 simulated s,
+   target 0.55, seed 0): each of DySTop, MATCHA, GossipFL, AsyDFL and
+   SA-ADFL runs ``run_simulation`` on the card with the counters zeroed
+   (``aggregate`` and ``fused_sgd`` must launch), on the CPU (control
+   plane identical, ``acc_global`` within 1e-3 at every eval) and once more
+   on the card under the profiler (the busy share); reports t@0.55, comm
+   GB@0.55, the final accuracy, wall and busy share per mechanism, and
+   DySTop's savings against the best ADFL baseline beside the JAX
+   package's CPU figures; then holds each kernel at the cell's new shapes
+   against its plain version and times it beside the library call and its
+   bound;
+23. DySTop and AsyDFL on the same cell for 100 rounds with a bound log, on
+   the card and on the CPU: Theorem 1's bound over the two logs must be
+   equal to the last bit;
+24. a child process (``chip_smoke.py --sim-child DIR``) runs
+   ``SimConfig()`` with the churn20 scenario and a snapshot every 50
+   rounds on the card and gets SIGKILL once its second snapshot exists;
+   the run resumed on the card from the oldest snapshot left must equal an
+   uninterrupted checkpointing run on the card (control plane exactly,
+   curves within rtol 1e-6 / atol 1e-7; whether they are bit-equal is
+   reported);
+25. smollm-135m at full width with 2 workers (cut from phase 8's 8: a
+   snapshot holds 12 bytes per parameter per worker, 3.2 GB here) for 6
+   rounds with a snapshot every 3 (the free disk is checked first); the
+   run resumed from round 3 must equal the uninterrupted one on the
+   control plane and within rtol 1e-3 on ``loss_global``; 8 greedy requests
+   served through ``serving.bridge`` from the round-6 snapshot, for worker 0
+   and for the Eq. 11 global model, must all complete, the served
+   parameters being the snapshot's row bit for bit; the snapshots are
+   deleted afterwards.
+
 Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
-``{"mamba2": ...}``, ``{"serving": ...}``, ``{"mesh": ...}``,
-``{"kernels": [...]}`` (the three mesh twins as row 3) and ``{"sim":
-{...}}`` lines, the card's name and power limit and, as the last line,
-``{"ok": true, "device": {...}}``.
+``{"mamba2": ...}``, ``{"serving": ...}``, ``{"mesh": ...}``, ``{"arena":
+...}``, ``{"convergence": ...}``, ``{"sigkill_resume": ...}``,
+``{"lm_snapshot": ...}``, ``{"kernels": [...]}`` (the three mesh twins as
+row 3) and ``{"sim": {...}}`` lines, the card's name and power limit and,
+as the last line, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1170,6 +1207,443 @@ def mesh_kernel_rows(mesh_runs: dict, sgd_floor: dict) -> list:
     ]
 
 
+# ---- phases 22-25: the Table-I arena, the bound, snapshots and resume -----
+
+# the arena's headline cell: benchmarks/arena.py::main's non-IID clean cell
+# with benchmarks/common.py::run_mech's settings, copied here (benchmarks/
+# imports the JAX package); nothing is cut
+ARENA_CFG = dict(n_workers=24, n_rounds=6000, phi=0.4, tau_bound=5, V=10.0,
+                 lr=0.1, eval_every=max(6000 // 8, 5), seed=0,
+                 target_accuracy=0.55, max_sim_time=4000.0)
+ARENA_MECHS = {"dystop": {"V": 10.0, "t_thre": 50, "max_neighbors": 7},
+               "matcha": {}, "gossipfl": {}, "asydfl": {"n_neighbors": 7},
+               "sa-adfl": {"V": 10.0}}
+ARENA_ADFL = ("asydfl", "sa-adfl")     # the headline's ADFL state of the art
+# the JAX package's CPU run of the same cell (BENCH_arena.json,
+# arena/*/phi0.4/clean): simulated seconds and GB at 0.55, reference values
+# printed beside the port's, never as the port's
+ARENA_JAX_CPU = {"dystop": (669.4, 4.2), "matcha": (1686.1, 3.8),
+                 "gossipfl": (1333.8, 0.9), "asydfl": (1666.8, 2.9),
+                 "sa-adfl": (1338.6, 2.2), "time_saved_pct": 50.0,
+                 "comm_saved_pct": -93.6}
+ARENA_CARD_CPU_TOL = 1e-3          # acc_global, card vs CPU, every eval
+SIM_CONTROL = ("rounds", "sim_time", "comm_gb", "round_active",
+               "round_durations", "staleness_avg", "staleness_max")
+SIM_CURVES = ("acc_global", "acc_local", "loss_global")
+RESUME_RTOL, RESUME_ATOL = 1e-6, 1e-7   # tests/test_pipeline.py's resume gate
+BOUND_KW = dict(f0_gap=2.0, eta=0.01, mu=0.5, L=1.0)   # Theorem 1 inputs
+SIGKILL_CKPT = dict(checkpoint_every=50, scenario="churn20")
+LM_CKPT_RTOL = 1e-3                # loss_global, LM resume vs uninterrupted
+
+
+def sgd_recorder(counter, sgd):
+    """A wrapper around ``fused_sgd`` that counts each call's shape."""
+    def rec_sgd(buf, xb, yb, active, spec, lr, with_losses=True):
+        counter[("fused_sgd", buf.shape[0], bool(with_losses))] += 1
+        return sgd(buf, xb, yb, active, spec, lr, with_losses)
+
+    return rec_sgd
+
+
+def pct_saved(dystop_v, base_v):
+    """DySTop's reduction against a baseline in % (``benchmarks/arena.py``'s
+    rule); None if either never reached the target."""
+    if dystop_v is None or base_v is None or base_v <= 0:
+        return None
+    return 100.0 * (1.0 - dystop_v / base_v)
+
+
+def arena_phase() -> tuple:
+    """Phase 22: the five Table-I mechanisms on the arena's headline cell,
+    each on the card with the counters zeroed (``aggregate`` and
+    ``fused_sgd`` must launch), on the CPU (control plane identical,
+    ``acc_global`` within ``ARENA_CARD_CPU_TOL`` at every eval) and once
+    more on the card under the profiler (busy share over the first card
+    run's wall).  Returns the report and each mechanism's kernel shapes."""
+    import numpy as np
+    import torch
+    from repro_torch.core.baselines import get_mechanism
+    from repro_torch.dfl.simulator import SimConfig, run_simulation
+    from repro_torch.kernels import aggregate as AGG
+    from repro_torch.kernels import fused_sgd as FSGD
+    cfg = SimConfig(**ARENA_CFG)
+    orig_agg, orig_sgd = AGG.aggregate, FSGD.fused_sgd
+    report, shapes_by_mech = {}, {}
+    for name, kw in ARENA_MECHS.items():
+        shapes: Counter = Counter()
+        AGG.aggregate, _ = recorder(shapes, orig_agg)
+        FSGD.fused_sgd = sgd_recorder(shapes, orig_sgd)
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            card = run_simulation(get_mechanism(name, **kw), cfg)
+        finally:
+            AGG.aggregate, FSGD.fused_sgd = orig_agg, orig_sgd
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {"aggregate": AGG.launches, "fused_sgd": FSGD.launches}
+        check(launches["aggregate"] > 0 and launches["fused_sgd"] > 0,
+              f"arena {name}: a kernel never launched: {launches}")
+        acc = np.asarray(card.acc_global)
+        check(np.isfinite(acc).all() and np.isfinite(card.loss_global).all(),
+              f"arena {name}: non-finite accuracy or loss")
+        cpu = run_simulation(get_mechanism(name, **kw), cfg, device="cpu")
+        for f in SIM_CONTROL:
+            check(getattr(card, f) == getattr(cpu, f),
+                  f"arena {name}: card and CPU differ in {f}")
+        gap = float(np.max(np.abs(acc - np.asarray(cpu.acc_global))))
+        check(gap <= ARENA_CARD_CPU_TOL,
+              f"arena {name}: card and CPU accuracy differ by {gap}")
+        busy_s, top, _ = device_profile(
+            lambda: run_simulation(get_mechanism(name, **kw), cfg))
+        report[name] = {
+            "rounds": len(card.round_durations),
+            "sim_time_s": card.sim_time[-1], "comm_gb": card.comm_gb[-1],
+            "t_at_target_s": card.completion_time,
+            "comm_gb_at_target": card.completion_comm_gb,
+            "cpu_t_at_target_s": cpu.completion_time,
+            "acc_final": float(acc[-1]), "card_vs_cpu_acc_gap": gap,
+            "wall_s": wall, "setup_wall_s": card.setup_wall_s,
+            "plan_wall_s": card.plan_wall_s, "eval_wall_s": card.eval_wall_s,
+            "device_busy_s": busy_s,
+            "device_busy_share": None if busy_s is None else busy_s / wall,
+            "device_top_kernels": top, "launches": launches,
+            "jax_cpu_reference": {"t_at_target_s": ARENA_JAX_CPU[name][0],
+                                  "comm_gb_at_target":
+                                      ARENA_JAX_CPU[name][1]}}
+        shapes_by_mech[name] = shapes
+        print(f"arena {name}: {report[name]['rounds']} rounds, t@0.55 "
+              f"{card.completion_time} s, comm@0.55 {card.completion_comm_gb}"
+              f" GB, acc {acc[-1]:.4f}, wall {wall:.2f} s, launches "
+              f"{launches}, card vs CPU control identical, acc gap "
+              f"{gap:.2e}", flush=True)
+    dy = report["dystop"]
+    best_t = min((report[b]["t_at_target_s"] for b in ARENA_ADFL
+                  if report[b]["t_at_target_s"] is not None), default=None)
+    best_c = min((report[b]["comm_gb_at_target"] for b in ARENA_ADFL
+                  if report[b]["comm_gb_at_target"] is not None),
+                 default=None)
+    headline = {
+        "cell": "phi0.4/clean", "target": ARENA_CFG["target_accuracy"],
+        "versus": "best ADFL baseline (asydfl, sa-adfl)",
+        "time_saved_pct": pct_saved(dy["t_at_target_s"], best_t),
+        "comm_saved_pct": pct_saved(dy["comm_gb_at_target"], best_c),
+        "jax_cpu_reference": {
+            "time_saved_pct": ARENA_JAX_CPU["time_saved_pct"],
+            "comm_saved_pct": ARENA_JAX_CPU["comm_saved_pct"],
+            "source": "BENCH_arena.json (the JAX package on a CPU), not the "
+                      "port's"},
+        "paper": {"time_saved_pct": 51.8, "comm_saved_pct": 57.1}}
+    print(f"arena headline: DySTop saves {headline['time_saved_pct']} % "
+          f"time and {headline['comm_saved_pct']} % comm against the best "
+          f"ADFL baseline (the JAX package's CPU run: 50.0 % / -93.6 %)",
+          flush=True)
+    return {"mechanisms": report, "headline": headline}, shapes_by_mech
+
+
+def arena_kernel_rows(shapes_by_mech: dict, gen, spec, dev) -> tuple:
+    """The kernels at the arena cell's shapes (each mechanism's two
+    commonest ``aggregate`` shapes and its commonest ``fused_sgd`` shape,
+    each shape once): held against the plain version, then timed beside it,
+    the library call and the bound, as phase 4 times the sim cell's."""
+    import torch
+    from repro_torch.kernels import aggregate as AGG
+    from repro_torch.kernels import fused_sgd as FSGD
+    n, p = ARENA_CFG["n_workers"], spec.n_params
+    steps, batch, lr = 2, 32, ARENA_CFG["lr"]
+    X = torch.randn((n, p), generator=gen).to(dev)
+    agg_rows, sgd_rows, seen = [], [], set()
+    for name, shapes in shapes_by_mech.items():
+        aggs = sorted(((s, c) for s, c in shapes.items()
+                       if s[0] == "aggregate"), key=lambda sc: -sc[1])
+        sgds = sorted(((s, c) for s, c in shapes.items()
+                       if s[0] == "fused_sgd"), key=lambda sc: -sc[1])
+        for (_, k, u, col), count in aggs[:2]:
+            if ("aggregate", k, u, col) in seen:
+                continue
+            seen.add(("aggregate", k, u, col))
+            W, cid = agg_case(gen, k, u, n, col, dev)
+            got, want = AGG.aggregate(W, X, cid), AGG.aggregate_plain(W, X,
+                                                                      cid)
+            torch.cuda.synchronize()
+            err = float((got - want).abs().max())
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+            lib_cid = None if cid is None else cid.long()
+            b_ms, b_by = agg_cost(k, W.cpu(),
+                                  None if cid is None else cid.cpu(), p, n)
+            agg_rows.append({
+                "label": f"arena {name}", "N": n, "k": k, "u": u,
+                "col_sparse": col, "launches": count, "max_abs_err": err,
+                "ms": device_ms(lambda: AGG.aggregate(W, X, cid)),
+                "plain_ms": device_ms(lambda: AGG.aggregate_plain(W, X,
+                                                                  cid)),
+                "library_ms": device_ms(
+                    (lambda: torch.matmul(W, X)) if cid is None else
+                    (lambda: torch.matmul(W, X.index_select(0, lib_cid)))),
+                "bound_ms": b_ms, "bound_by": b_by})
+        for (_, k, with_losses), count in sgds[:1]:
+            if ("fused_sgd", k, with_losses) in seen:
+                continue
+            seen.add(("fused_sgd", k, with_losses))
+            buf, xb, yb, active = sgd_case(gen, k, steps, batch, 32, 10, dev,
+                                           p)
+            out, loss = FSGD.fused_sgd(buf, xb, yb, active, spec, lr,
+                                       with_losses)
+            ref, ref_loss = FSGD.local_sgd_flat_fused(buf, xb, yb, active,
+                                                      spec, lr, with_losses)
+            torch.cuda.synchronize()
+            err = max(float((out - ref).abs().max()),
+                      float((loss - ref_loss).abs().max()))
+            torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+            b_ms, b_by = sgd_cost(spec, active, k, steps, batch, with_losses)
+            sgd_rows.append({
+                "label": f"arena {name}", "k": k, "with_losses": with_losses,
+                "launches": count, "max_abs_err": err,
+                "ms": device_ms(lambda: FSGD.fused_sgd(
+                    buf, xb, yb, active, spec, lr, with_losses)),
+                "plain_ms": device_ms(lambda: FSGD.local_sgd_flat_fused(
+                    buf, xb, yb, active, spec, lr, with_losses)),
+                "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+    for kernel, rows in (("aggregate", agg_rows), ("fused_sgd", sgd_rows)):
+        for r in rows:
+            print(f"{kernel} at the {r['label']} shape: {r}", flush=True)
+    return agg_rows, sgd_rows
+
+
+def bound_phase() -> dict:
+    """Phase 23: DySTop and AsyDFL on the arena cell for 100 rounds with a
+    bound log, on the card and on the CPU: Theorem 1's bound over the two
+    logs must be equal to the last bit (the log is control plane only)."""
+    import numpy as np
+    from repro_torch.core import convergence as CV
+    from repro_torch.core.baselines import get_mechanism
+    from repro_torch.dfl.simulator import SimConfig, run_simulation
+    cfg = SimConfig(**dict(ARENA_CFG, n_rounds=100))
+    n = cfg.n_workers
+    args = dict(alpha=np.full(n, 1.0 / n), xi=np.full(n, 0.5),
+                g_star=np.ones(n), **BOUND_KW)
+    out = {}
+    for name in ("dystop", "asydfl"):
+        bounds = []
+        for device in ("cuda", "cpu"):
+            h = run_simulation(get_mechanism(name, **ARENA_MECHS[name]), cfg,
+                               record_history_for_bound=True, device=device)
+            log = h.bound_log
+            check(len(log["active"]) == 100, f"bound log of {name} has "
+                  f"{len(log['active'])} rounds")
+            bounds.append(CV.convergence_bound(log["active"], log["W"],
+                                               **args))
+        check(bounds[0] == bounds[1] and np.isfinite(bounds[0])
+              and bounds[0] > 0,
+              f"convergence bound of {name}: card {bounds[0]!r}, CPU "
+              f"{bounds[1]!r}")
+        out[name] = {"rounds": 100, "bound": bounds[0]}
+        print(f"bound over 100 rounds, {name}: {bounds[0]!r} on the card "
+              f"and the CPU alike", flush=True)
+    out["inputs"] = {"alpha": "uniform", "xi": 0.5, "g_star": 1.0,
+                     **BOUND_KW}
+    return out
+
+
+def sim_child(ckdir: str) -> int:
+    """The checkpointing run that phase 24 kills: ``SimConfig()`` defaults
+    with the churn20 scenario, a snapshot every 50 rounds, on the card."""
+    sys.path.insert(0, str(pathlib.Path(__file__).resolve().parent / "src"))
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl.simulator import SimConfig, run_simulation
+    run_simulation(DySTop(V=10.0, t_thre=20),
+                   SimConfig(checkpoint_dir=ckdir, **SIGKILL_CKPT))
+    return 0
+
+
+def sigkill_phase(root: pathlib.Path) -> dict:
+    """Phase 24: a child process runs ``sim_child``; once its second
+    snapshot exists it gets SIGKILL.  The run resumed on the card from the
+    oldest snapshot left must equal an uninterrupted checkpointing run on
+    the card: control plane exactly, the curves within rtol 1e-6 / atol
+    1e-7."""
+    import shutil
+    import signal
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import io as CIO
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl.simulator import SimConfig, run_simulation
+    shutil.rmtree(root, ignore_errors=True)
+    killed, whole = root / "killed", root / "whole"
+    second = CIO.checkpoint_path(killed, 2 * SIGKILL_CKPT["checkpoint_every"])
+    t0 = time.perf_counter()
+    child = subprocess.Popen([sys.executable,
+                              str(pathlib.Path(__file__).resolve()),
+                              "--sim-child", str(killed)])
+    try:
+        deadline = time.monotonic() + 600
+        while not second.exists():
+            check(child.poll() is None, f"the checkpointing child exited "
+                  f"({child.returncode}) before its second snapshot")
+            check(time.monotonic() < deadline, "the checkpointing child "
+                  "wrote no second snapshot in 600 s")
+            time.sleep(0.001)
+        child.send_signal(signal.SIGKILL)
+        rc = child.wait(timeout=60)
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    kill_wall = time.perf_counter() - t0
+    kept = CIO.list_checkpoints(killed)
+    n_rounds = SimConfig().n_rounds
+    check(rc == -signal.SIGKILL, f"the child was not killed (exit {rc})")
+    check(bool(kept) and kept[-1] != CIO.checkpoint_path(killed, n_rounds),
+          f"the killed run finished before the kill: {kept}")
+    mech = lambda: DySTop(V=10.0, t_thre=20)        # noqa: E731
+    zero_counters()
+    t0 = time.perf_counter()
+    res = run_simulation(mech(), SimConfig(checkpoint_dir=str(killed),
+                                           **SIGKILL_CKPT),
+                         resume_from=str(kept[0]))
+    torch.cuda.synchronize()
+    resume_wall = time.perf_counter() - t0
+    launches = read_counters()
+    check(launches["aggregate"] > 0 and launches["fused_sgd"] > 0,
+          f"the resumed run launched no kernel: {launches}")
+    ref = run_simulation(mech(), SimConfig(checkpoint_dir=str(whole),
+                                           **SIGKILL_CKPT))
+    for f in SIM_CONTROL:
+        check(getattr(res, f) == getattr(ref, f),
+              f"resume after SIGKILL: {f} differs from the uninterrupted run")
+    gaps = {}
+    for f in SIM_CURVES:
+        a, b = np.asarray(getattr(res, f)), np.asarray(getattr(ref, f))
+        check(np.allclose(a, b, rtol=RESUME_RTOL, atol=RESUME_ATOL),
+              f"resume after SIGKILL: {f} off the uninterrupted run by "
+              f"{np.abs(a - b).max()}")
+        gaps[f] = float(np.abs(a - b).max())
+    bit_equal = all(getattr(res, f) == getattr(ref, f) for f in SIM_CURVES)
+    out = {"config": "SimConfig() defaults, scenario churn20, "
+                     "checkpoint_every=50, DySTop(V=10.0, t_thre=20)",
+           "child_exit": rc, "snapshots_left": [p.name for p in kept],
+           "resumed_from": kept[0].name, "kill_wall_s": kill_wall,
+           "resume_wall_s": resume_wall, "launches": launches,
+           "max_curve_gaps": gaps, "curves_bit_equal": bit_equal}
+    shutil.rmtree(root, ignore_errors=True)
+    print(f"SIGKILL resume: child killed after {kept[-1].name}, resumed "
+          f"from {kept[0].name}: control plane identical, curves "
+          f"{'bit-equal' if bit_equal else gaps}", flush=True)
+    return out
+
+
+def lm_snapshot_phase(root: pathlib.Path) -> dict:
+    """Phase 25: smollm-135m at full width, 2 workers, 6 rounds, a snapshot
+    every 3 rounds; resume from round 3 (control plane exactly,
+    ``loss_global`` within rtol ``LM_CKPT_RTOL``); serve 8 greedy requests
+    from the round-6 snapshot through ``serving.bridge`` for worker 0 and
+    for the Eq. 11 global model, the served parameters the snapshot's row
+    bit for bit.  The snapshots are deleted afterwards."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import io as CIO
+    from repro_torch.configs import smollm_135m
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl import flat_state as FS
+    from repro_torch.dfl import lm_worker as LW
+    from repro_torch.serving import bridge as BR
+    from repro_torch.tree import tree_paths
+    cfg = smollm_135m.get_config()
+    spec = BR.fleet_spec_for(cfg)
+    p = spec.n_params
+    snap_bytes = 2 * 3 * p * 4          # pbuf and Adam's two moments, f32
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    free = shutil.disk_usage(root).free
+    need = 3 * snap_bytes + (1 << 30)   # two snapshots and one being written
+    check(free >= need, f"phase 25 needs {need / 1e9:.1f} GB of free disk "
+          f"under {root}, found {free / 1e9:.1f} GB")
+    run = LW.LMRunConfig(n_workers=2, n_rounds=6, batch=4, seq=256,
+                         optimizer="adam", lr=1e-3, eval_every=5,
+                         checkpoint_every=3, checkpoint_dir=str(root))
+    mech = lambda: DySTop(V=3.0, t_thre=10, max_neighbors=3)   # noqa: E731
+    try:
+        t0 = time.perf_counter()
+        _, whole = LW.run_lm_federation(mech(), cfg, run)
+        torch.cuda.synchronize()
+        whole_wall = time.perf_counter() - t0
+        snaps = CIO.list_checkpoints(root)
+        check([s.name for s in snaps] == ["ckpt_round000003.npz",
+                                          "ckpt_round000006.npz"],
+              f"LM snapshots: {[s.name for s in snaps]}")
+        sizes = [s.stat().st_size for s in snaps]
+        torch.cuda.empty_cache()
+        zero_counters()
+        t0 = time.perf_counter()
+        _, res = LW.run_lm_federation(mech(), cfg, run, str(snaps[0]))
+        torch.cuda.synchronize()
+        resume_wall = time.perf_counter() - t0
+        launches = read_counters()
+        check(launches["flash_attention"] > 0 and launches["aggregate"] > 0,
+              f"the resumed LM run launched no kernel: {launches}")
+        for f in ("rounds", "sim_time", "comm_gb", "round_active",
+                  "round_durations", "staleness_avg", "staleness_max"):
+            check(getattr(res, f) == getattr(whole, f),
+                  f"LM resume: {f} differs from the uninterrupted run")
+        lg_a, lg_b = np.asarray(res.loss_global), np.asarray(whole.loss_global)
+        check(np.isfinite(lg_a).all()
+              and np.allclose(lg_a, lg_b, rtol=LM_CKPT_RTOL, atol=0),
+              f"LM resume: loss_global {lg_a.tolist()} vs {lg_b.tolist()}")
+        torch.cuda.empty_cache()
+        # serve from the round-6 snapshot (the resumed run's)
+        ck = CIO.checkpoint_path(root, 6)
+        blobs, _ = CIO.read_checkpoint(ck, ("params|pbuf",))
+        row0 = torch.from_numpy(blobs.pop("params|pbuf")[0].copy()).cuda()
+        served = BR.serving_params_from_checkpoint(ck, cfg, worker=0)
+        want = FS.unravel_tree(row0, spec, copy=True)
+        for (pa, a), (pb, b) in zip(tree_paths(served), tree_paths(want)):
+            check(pa == pb and a.dtype == b.dtype and torch.equal(a, b),
+                  f"served leaf {pa} differs from the snapshot's row")
+        again = torch.empty_like(row0)
+        FS.ravel_tree_into(served, spec, again)
+        check(torch.equal(again.view(torch.int32), row0.view(torch.int32)),
+              "the snapshot's f32 row does not hold its bf16 leaves exactly")
+        del served, want, again, row0
+        reqs = serve_requests(cfg, 8, 31)
+        served_tokens = {}
+        t0 = time.perf_counter()
+        for label, worker in (("worker 0", 0), ("global", None)):
+            eng = BR.engine_from_checkpoint(ck, cfg, worker=worker,
+                                            batch_slots=8, max_len=512)
+            rids = [eng.submit(r.prompt, r.gen) for r in reqs]
+            out = eng.run()
+            check(all(len(out[i]) == r.gen.max_new_tokens
+                      for i, r in zip(rids, reqs)),
+                  f"serving from the snapshot ({label}): a request did not "
+                  f"complete")
+            served_tokens[label] = sum(len(out[i]) for i in rids)
+            del eng
+            torch.cuda.empty_cache()
+        serve_wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out = {"config": "smollm-135m get_config() (30 layers), LMRunConfig("
+                     "n_workers=2, n_rounds=6, batch=4, seq=256, adam, "
+                     "lr=1e-3, eval_every=5, checkpoint_every=3), "
+                     "DySTop(V=3.0, t_thre=10, max_neighbors=3)",
+           "P": p, "snapshot_bytes": sizes, "whole_wall_s": whole_wall,
+           "resume_wall_s": resume_wall, "launches": launches,
+           "loss_global": lg_a.tolist(),
+           "loss_bit_equal": bool(np.array_equal(lg_a, lg_b)),
+           "served_tokens": served_tokens, "serve_wall_s": serve_wall,
+           "disk_free_bytes": free}
+    print(f"LM snapshot: resumed from round 3 on the uninterrupted control "
+          f"plane, loss_global {lg_a.tolist()}; served 8 requests from the "
+          f"round-6 snapshot for worker 0 and the global model "
+          f"({served_tokens}); snapshots {sizes} bytes, deleted", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1366,12 +1840,7 @@ def main() -> int:
     orig_agg, orig_sgd = AGG.aggregate, FSGD.fused_sgd
     orig_fa = FA.flash_attention
     rec_agg, _ = recorder(shapes, orig_agg)
-
-    def rec_sgd(buf, xb, yb, active, spec, lr, with_losses=True):
-        shapes[("fused_sgd", buf.shape[0], bool(with_losses))] += 1
-        return orig_sgd(buf, xb, yb, active, spec, lr, with_losses)
-
-    AGG.aggregate, FSGD.fused_sgd = rec_agg, rec_sgd
+    AGG.aggregate, FSGD.fused_sgd = rec_agg, sgd_recorder(shapes, orig_sgd)
     AGG.launches = 0
     FSGD.launches = 0
     torch.cuda.synchronize()
@@ -1934,6 +2403,22 @@ def main() -> int:
                                       lm_agg_row["P"])
         del ranks
 
+    # ---- 22. the arena's headline cell: the five Table-I mechanisms ------
+    torch.cuda.empty_cache()
+    arena, arena_shapes = arena_phase()
+    arena_agg_rows, arena_sgd_rows = arena_kernel_rows(arena_shapes, gen,
+                                                       spec, dev)
+
+    # ---- 23. the convergence bound, card vs CPU ---------------------------
+    bound = bound_phase()
+
+    # ---- 24. a SIGKILL mid-run, and the resume -----------------------------
+    sigkill = sigkill_phase(build_dir / "chip_smoke_sigkill")
+
+    # ---- 25. LM snapshot -> resume -> serve --------------------------------
+    torch.cuda.empty_cache()
+    lm_snap = lm_snapshot_phase(build_dir / "chip_smoke_lm_snapshots")
+
     top_agg, top_sgd = agg_rows[0], sgd_rows[0]
     kernels = [
         {"name": "aggregate", "route": "cuda",
@@ -1947,6 +2432,9 @@ def main() -> int:
          "library_ms": top_agg["library_ms"], "call_ms": top_agg["call_ms"],
          "lm": lm_agg_row,
          "shapes": agg_rows + [lm_agg_row, m_agg_row, big_row],
+         "arena_shapes": arena_agg_rows,
+         "arena_launches": {m: r["launches"]["aggregate"]
+                            for m, r in arena["mechanisms"].items()},
          "floor": agg_floor},
         {"name": "fused_sgd", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/fused_sgd.cu",
@@ -1957,7 +2445,9 @@ def main() -> int:
          "plain_ms": top_sgd["plain_ms"], "bound_ms": top_sgd["bound_ms"],
          "bound_by": top_sgd["bound_by"], "library_ms": None,
          "call_ms": top_sgd["call_ms"], "floor": sgd_floor,
-         "shapes": sgd_rows},
+         "shapes": sgd_rows, "arena_shapes": arena_sgd_rows,
+         "arena_launches": {m: r["launches"]["fused_sgd"]
+                            for m, r in arena["mechanisms"].items()}},
         {"name": "flash_attention", "route": "cuda",
          "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
          "replaces": "src/repro/kernels/flash_attention.py:102",
@@ -2073,6 +2563,13 @@ def main() -> int:
                               else g_busy / prof_rep[1]),
         "device_top_kernels": g_top, **g_extra,
         "card_vs_cpu": serve_gaps, "moe_router": router_rows}}))
+    print(json.dumps({"arena": {
+        "config": "benchmarks/arena.py::main's phi0.4/clean cell with "
+                  "run_mech's settings: " + json.dumps(ARENA_CFG)
+                  + ", mechanisms " + json.dumps(ARENA_MECHS), **arena}}))
+    print(json.dumps({"convergence": bound}))
+    print(json.dumps({"sigkill_resume": sigkill}))
+    print(json.dumps({"lm_snapshot": lm_snap}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"sim": {
         "config": "SimConfig() defaults, DySTop(V=10.0, t_thre=20)",
@@ -2094,4 +2591,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--sim-child"]:       # phase 24's killed run
+        sys.exit(sim_child(sys.argv[2]))
     sys.exit(main())

@@ -381,3 +381,57 @@ class HorizonPlanner:
                                         or self.t < max_round):
             plans.append(self.plan_round())
         return plans
+
+    # -- checkpoint/resume ---------------------------------------------------
+    # The planner owns ALL mutable control-plane state, so these two methods
+    # are the complete control half of a crash-safe snapshot: restoring them
+    # into a freshly-constructed planner (same config, same seed-derived
+    # static inputs) makes the next plan_round() bit-identical to the round
+    # the original run would have planned.  The rng state is the numpy
+    # BitGenerator state dict — plain ints/strs, so it survives a JSON
+    # round-trip through checkpoint metadata exactly.
+    #
+    # Pipeline-depth semantics: the drive loops NEVER plan past a snapshot
+    # boundary (checkpoint rounds force a flush + pipeline drain before
+    # save_snapshot runs), so at snapshot time ``self.t`` equals the last
+    # DISPATCHED round and state_dict() needs no in-flight plan queue —
+    # resuming a pipelined run replays from the exact same stream position as
+    # a lockstep one.  That invariant is what keeps pipeline_depth out of the
+    # checkpoint format (see dfl.pipeline).
+
+    _STATE_ARRAYS = ("tau", "queue", "pull_counts", "time_since_act",
+                     "budget", "down")
+
+    def state_dict(self) -> dict:
+        """Snapshot every mutable control-plane field (copies, not views)."""
+        return {
+            "arrays": {
+                "tau": self.st.tau.copy(),
+                "queue": self.st.queue.copy(),
+                "pull_counts": self.pull_counts.copy(),
+                "time_since_act": self.time_since_act.copy(),
+                "budget": self.budget.copy(),
+                "down": self.down.copy(),
+            },
+            "scalars": {"t": int(self.t),
+                        "sim_clock": float(self.sim_clock),
+                        "comm_bytes": float(self.comm_bytes)},
+            "rng_state": self.rng.bit_generator.state,
+        }
+
+    def load_state(self, state: dict) -> None:
+        """Restore a ``state_dict()`` snapshot (dtype-exact: the arrays stay
+        host numpy, int64 and float64 as the planner keeps them)."""
+        a = state["arrays"]
+        self.st.tau = np.asarray(a["tau"], np.int64).copy()
+        self.st.queue = np.asarray(a["queue"], np.float64).copy()
+        self.pull_counts = np.asarray(a["pull_counts"], np.float64).copy()
+        self.time_since_act = np.asarray(a["time_since_act"],
+                                         np.float64).copy()
+        self.budget = np.asarray(a["budget"], np.float64).copy()
+        self.down = np.asarray(a["down"], bool).copy()
+        s = state["scalars"]
+        self.t = int(s["t"])
+        self.sim_clock = float(s["sim_clock"])
+        self.comm_bytes = float(s["comm_bytes"])
+        self.rng.bit_generator.state = state["rng_state"]

@@ -23,20 +23,24 @@ streams run on the host with the JAX package's numpy draws, so both
 packages see identical control trajectories and batches.  With
 ``mesh_shards > 1`` the resident buffers are row-partitioned over a fleet
 mesh of that many processes (``launch.mesh``,
-``sharding.rules.FleetSharding``).  The JAX package's per-call-flatten
-oracle and checkpointing are not ported: their settings raise
-``NotImplementedError`` naming their ROADMAP item.
+``sharding.rules.FleetSharding``).  ``checkpoint_every`` writes atomic
+snapshots of the whole fleet (``checkpoint.io``, the JAX package's layout)
+that ``resume_from`` continues exactly and ``serving.bridge`` serves.  The
+JAX package's per-call-flatten oracle is not ported: its setting raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import (Any, Callable, ClassVar, Dict, Iterator, List, Optional,
                     Tuple)
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as CIO
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.aggregation import prefer_cols
 from repro_torch.core.planner import (HorizonPlanner, PlannedRound,
@@ -397,9 +401,14 @@ class LMRunConfig:
     mesh of that many ranks (see ``run_lm_federation``).
 
     ``device``: where the model plane runs — ``"cuda"`` (the default; the
-    run raises if there is no CUDA card) or ``"cpu"``.  Settings of paths
-    this port does not run yet are validated as the JAX package validates
-    them and then raise ``NotImplementedError`` naming their ROADMAP item.
+    run raises if there is no CUDA card) or ``"cpu"``.
+    ``checkpoint_every > 0`` snapshots the fleet every that many rounds into
+    ``checkpoint_dir``, keeping the ``checkpoint_keep`` newest (snapshot
+    rounds are flush boundaries with the pipeline drained).  ``use_kernel``
+    (the JAX package's deprecated alias) warns and changes nothing: the
+    tensor's device picks the kernel.  ``resident_fleet=False`` is validated
+    as the JAX package validates it and then raises ``NotImplementedError``
+    naming its ROADMAP item.
     """
     n_workers: int = 8
     n_rounds: int = 30
@@ -422,7 +431,7 @@ class LMRunConfig:
     sync_link_timeout_s: float = 30.0
     comm_range_m: float = 80.0
     compute_sigma: float = 0.6
-    use_kernel: bool = False          # the JAX package's deprecated alias
+    use_kernel: bool = False          # deprecated alias; changes nothing
     kernels: Optional[KernelConfig] = None  # kernel tiles; None =
                                       #   KernelConfig()
     failure_prob: float = 0.0         # stochastic edge dynamics
@@ -474,17 +483,17 @@ class LMRunConfig:
         if str(self.device).split(":")[0] not in ("cpu", "cuda"):
             raise ValueError(f"LMRunConfig.device must be 'cuda' (the card) "
                              f"or 'cpu', got {self.device!r}")
-        for off, what, item in (
-                (not self.resident_fleet, "resident_fleet=False (the "
-                 "per-call-flatten oracle)", 4),
-                (self.checkpoint_every > 0, "checkpoint_every > 0 "
-                 "(snapshots)", 3),
-                (self.use_kernel, "use_kernel (the JAX package's kernel "
-                 "alias; here the tensor's device picks the kernel)", 6)):
-            if off:
-                raise NotImplementedError(
-                    f"LMRunConfig: {what} is not ported to PyTorch yet — "
-                    f"ROADMAP Queue A item {item}")
+        if self.use_kernel:
+            warnings.warn(
+                "LMRunConfig.use_kernel is deprecated and changes nothing: "
+                "the tensor's device picks the kernel (CUDA tensors run the "
+                "CUDA kernels, CPU tensors their plain versions)",
+                DeprecationWarning, stacklevel=2)
+        if not self.resident_fleet:
+            raise NotImplementedError(
+                "LMRunConfig: resident_fleet=False (the per-call-flatten "
+                "oracle) is not ported to PyTorch yet — ROADMAP Queue A "
+                "item 4")
 
 
 @dataclasses.dataclass
@@ -531,7 +540,15 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     The ``HorizonPlanner`` owns all control state; one token-stream draw
     happens per planned round in plan order, so the batches, like the
     control trajectory, do not depend on ``scan_horizon`` or
-    ``pipeline_depth``.  ``device`` overrides ``run.device``.  ``init``
+    ``pipeline_depth``.  ``device`` overrides ``run.device``.
+
+    ``resume_from``: a snapshot file or checkpoint directory (its newest
+    snapshot) from a ``checkpoint_every`` run of the same config, by this
+    port or the JAX package; setup replays from the seed, then the resident
+    buffers (f32 holds the bf16 and int32 leaves exactly), the planner's
+    state and rng stream and the history are restored, and the token
+    streams skip the rounds already run (``worker_streams(skip_rounds=)``):
+    the continuation is the uninterrupted run's.  ``init``
     replaces the port's own initialisation with the JAX package's resident
     buffers ``(fleet.pbuf, fleet.obuf)`` as numpy arrays
     (``flat_state.fleet_from_reference``).
@@ -547,21 +564,20 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     partial sum and, at history points, the round losses.  After the last
     round the blocks are gathered to rank 0 through host memory (gloo) and
     rank 0 returns the fleet with every row; the other ranks return
-    ``(None, history)``.  At smollm-135m's full width with 8 workers that
-    assembly moves 12.9 GB (f32 params and Adam's two moments) through the
-    host and holds the whole fleet on rank 0's device beside its
-    optimizer-state block.
+    ``(None, history)``.  Snapshots are gathered to rank 0 the same way
+    (into host memory) and written by rank 0 alone; on resume every rank
+    reads the snapshot and takes its block.  At smollm-135m's full width
+    with 8 workers the final assembly moves 12.9 GB (f32 params and Adam's
+    two moments) through the host and holds the whole fleet on rank 0's
+    device beside its optimizer-state block.
     """
     R.check_trainable(cfg)
-    if resume_from is not None:
-        raise NotImplementedError("run_lm_federation: resume_from "
-                                  "(snapshots) is not ported to PyTorch yet "
-                                  "— ROADMAP Queue A item 3")
     dev = resolve_device(device if device is not None else run.device,
                          "run_lm_federation")
     if run.mesh_shards > 1 and not MESH.in_group():
         pbuf, obuf, hist = MESH.spawn(_lm_rank, run.mesh_shards, mechanism,
-                                      cfg, run, str(dev), init, device=dev)
+                                      cfg, run, str(dev), init, resume_from,
+                                      device=dev)
         opt = get_optimizer(run.optimizer, run.lr)
         spec, _ = _fleet_spec(R.init_params(cfg, None), opt)
         return LMFleet(cfg=cfg, pbuf=torch.from_numpy(pbuf).to(dev),
@@ -610,6 +626,40 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     hist = LMHistory()
     if shd is not None:
         hist.mesh_backend = shd.mesh.backend
+    run_config = {"plane": "lm", "n_workers": n, "seed": run.seed,
+                  "resident_fleet": run.resident_fleet,
+                  "mesh_shards": run.mesh_shards, "arch": cfg.arch_id,
+                  "optimizer": run.optimizer,
+                  "scenario": scen.schedule.name if scen else None}
+
+    # --- resume: overwrite the deterministic setup's mutable state
+    # (resident buffers, planner state and rng stream, history) and skip
+    # the token streams past the snapshot's rounds
+    if resume_from is not None:
+        ck = CIO.resolve_snapshot(resume_from)
+        arr_tmpl = {k: np.zeros_like(v)
+                    for k, v in planner.state_dict()["arrays"].items()}
+        model_tmpl = {
+            "pbuf": np.zeros((n, fleet.spec.params.n_params), np.float32),
+            "obuf": np.zeros((n, fleet.spec.opt.n_params), np.float32)}
+        CIO.check_resume_config(ck, CIO.read_checkpoint(ck, ())[1],
+                                run_config)
+        model, arrays, extra = CIO.load_checkpoint(ck, model_tmpl, arr_tmpl)
+        planner.load_state({"arrays": arrays,
+                            "scalars": extra["planner_scalars"],
+                            "rng_state": extra["planner_rng"]})
+        pb, ob = torch.from_numpy(model["pbuf"]), torch.from_numpy(
+            model["obuf"])
+        del model
+        fleet.pbuf, fleet.obuf = ((pb.to(dev), ob.to(dev)) if shd is None
+                                  else (shd.put_rows_padded(pb),
+                                        shd.put_rows_padded(ob)))
+        del pb, ob
+        streams = worker_streams(cfg, n, run.batch, run.seq, seed=run.seed,
+                                 skip_rounds=int(extra["round"]))
+        for k, v in extra["history"].items():
+            if hasattr(hist, k):
+                setattr(hist, k, v)
     engine = LMEngine(cfg, fleet.optimizer, fleet.spec, kernels=run.kernels,
                       shd=shd)
     horizon = max(1, run.scan_horizon)
@@ -658,6 +708,28 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
                                        if active.any() else 0.0)
         loss_rows.clear()
 
+    def save_snapshot(t: int) -> None:
+        """Atomic snapshot of the whole fleet (f32 ``pbuf``/``obuf`` hold
+        every leaf exactly), the planner's state and rng stream and the
+        history; called after a drain, so the buffers are round-consistent.
+        Under a mesh rank 0 gathers the blocks into host memory and alone
+        writes."""
+        if shd is None:
+            pb, ob = fleet.pbuf.cpu(), fleet.obuf.cpu()
+        else:
+            pb = shd.gather_rows(fleet.pbuf, device="cpu")
+            ob = shd.gather_rows(fleet.obuf, device="cpu")
+            if shd.rank != 0:
+                return
+        snap = planner.state_dict()
+        extra = {"round": t, "planner_scalars": snap["scalars"],
+                 "planner_rng": snap["rng_state"],
+                 "history": hist.to_dict(), "config": run_config}
+        CIO.save_checkpoint(CIO.checkpoint_path(run.checkpoint_dir, t),
+                            {"pbuf": pb.numpy(), "obuf": ob.numpy()},
+                            opt_state=snap["arrays"], extra=extra)
+        CIO.prune_checkpoints(run.checkpoint_dir, run.checkpoint_keep)
+
     while planner.t < run.n_rounds:
         t0p = time.perf_counter()
         p = planner.plan_round()
@@ -670,11 +742,13 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
         hist.round_active.append(int(p.active.sum()))
         pending.append((p, b))
         do_eval = p.t % run.eval_every == 0 or p.t == run.n_rounds
+        do_ckpt = (run.checkpoint_every > 0
+                   and p.t % run.checkpoint_every == 0)
         at_boundary = scen is not None and (p.t + 1) in scen.boundaries
-        if do_eval or at_boundary or len(pending) >= horizon:
+        if do_eval or do_ckpt or at_boundary or len(pending) >= horizon:
             flush()
             # read-back boundaries see round-consistent resident buffers
-            if do_eval or at_boundary:
+            if do_eval or do_ckpt or at_boundary:
                 pipe.drain()
         if do_eval:
             t_ev = time.time()
@@ -689,6 +763,11 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
             hist.staleness_avg.append(float(planner.st.tau.mean()))
             hist.staleness_max.append(int(planner.st.tau.max()))
             hist.eval_wall_s += time.time() - t_ev
+        if do_ckpt:
+            # after the eval (the snapshot's history carries the eval point)
+            # and with the losses drained, so round_loss is whole up to t
+            drain_losses()
+            save_snapshot(p.t)
 
     flush()
     pipe.drain()
@@ -706,13 +785,13 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
 
 
 def _lm_rank(mechanism, cfg: ModelConfig, run: LMRunConfig, device: str,
-             init) -> Tuple[Optional[np.ndarray], Optional[np.ndarray],
-                            LMHistory]:
+             init, resume_from) -> Tuple[Optional[np.ndarray],
+                                         Optional[np.ndarray], LMHistory]:
     """One rank of a spawned LM mesh: its share of the run; rank 0 returns
     the assembled buffers as numpy arrays (no CUDA tensor may outlive the
     rank)."""
-    fleet, hist = run_lm_federation(mechanism, cfg, run, device=device,
-                                    init=init)
+    fleet, hist = run_lm_federation(mechanism, cfg, run, resume_from,
+                                    device=device, init=init)
     if fleet is None:
         return None, None, hist
     return fleet.pbuf.cpu().numpy(), fleet.obuf.cpu().numpy(), hist

@@ -5,9 +5,12 @@ horizon chunk H the host can already plan, pack and stage chunk H+1.
 ``DispatchPipeline`` bounds that overlap: the drive loop ``submit()``s one
 ``torch.cuda.Event`` recorded after each chunk's launches, and the pipeline
 blocks only once more than ``depth`` chunks are outstanding.  Every read-back
-boundary (eval, scenario event, end of run) calls ``drain()`` first.  Values
-are untouched — the pipeline never reorders launches — so trajectories are
-identical at every depth.
+boundary (eval, snapshot, scenario event, end of run) calls ``drain()``
+first, so a snapshot reads a round-consistent buffer and the planner has
+planned no round past it: the snapshot is the same at every depth, and a
+run resumed from it is the uninterrupted one's.  Values are untouched — the
+pipeline never reorders launches — so trajectories are identical at every
+depth.
 
   * ``depth == 0`` — lockstep: ``submit`` waits for the chunk at once;
   * ``depth >= 1`` — up to that many chunks in flight behind the one being

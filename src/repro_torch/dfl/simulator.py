@@ -13,17 +13,21 @@ control plane; pending rounds go to the device in bucket-uniform chunks
 (``dfl.worker.mega_round_step``), with the flat (N, P) model buffer resident
 on ``device`` and updated in place.  With ``mesh_shards > 1`` the buffer is
 row-partitioned over a fleet mesh of that many processes
-(``launch.mesh``, ``sharding.rules.FleetSharding``).
+(``launch.mesh``, ``sharding.rules.FleetSharding``).  ``checkpoint_every``
+writes atomic snapshots (``checkpoint.io``) that ``resume_from`` continues
+exactly.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import warnings
 from typing import ClassVar, Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as CIO
 from repro_torch.core.aggregation import prefer_cols
 from repro_torch.core.planner import (HorizonPlanner, PlannedRound,
                                       bucket_key, chunk_spans, mix_is_train)
@@ -69,9 +73,15 @@ class SimConfig:
     are identical to the unsharded run's on the control plane and agree to
     f32 sum-order tolerance on the model plane.
 
-    Fields of the JAX package that this port does not run yet are kept and
-    validated, and a non-default value raises ``NotImplementedError`` naming
-    the ROADMAP item that ports it.
+    ``checkpoint_every > 0`` snapshots the run every that many rounds into
+    ``checkpoint_dir`` (the JAX package's npz layout, ``checkpoint.io``),
+    keeping the ``checkpoint_keep`` newest; snapshot rounds are flush
+    boundaries with the pipeline drained, in every checkpointing run.
+
+    ``use_kernel`` is the JAX package's deprecated kernel alias: here the
+    tensor's device picks the kernel, so it warns and changes nothing.
+    ``fused_engine=False`` (the legacy per-leaf path) is not ported yet and
+    raises ``NotImplementedError`` naming its ROADMAP item.
     """
     n_workers: int = 100
     n_rounds: int = 300               # round cap
@@ -97,7 +107,7 @@ class SimConfig:
     eval_every: int = 10
     target_accuracy: Optional[float] = None
     seed: int = 0
-    use_kernel: bool = False          # JAX package's deprecated kernel alias
+    use_kernel: bool = False          # deprecated alias; changes nothing
     kernels: Optional[KernelConfig] = None  # kernel tile sizes; None =
                                       #   KernelConfig()
     fused_engine: bool = True         # False = the legacy per-leaf path
@@ -167,17 +177,16 @@ class SimConfig:
         if str(self.device).split(":")[0] not in ("cpu", "cuda"):
             raise ValueError(f"SimConfig.device must be 'cuda' (the card) or "
                              f"'cpu', got {self.device!r}")
-        for off, what, item in (
-                (not self.fused_engine, "fused_engine=False (the legacy "
-                 "per-leaf path)", 4),
-                (self.checkpoint_every > 0, "checkpoint_every > 0 "
-                 "(snapshots)", 3),
-                (self.use_kernel, "use_kernel (the JAX package's kernel "
-                 "alias; here the tensor's device picks the kernel)", 6)):
-            if off:
-                raise NotImplementedError(
-                    f"SimConfig: {what} is not ported to PyTorch yet — "
-                    f"ROADMAP Queue A item {item}")
+        if self.use_kernel:
+            warnings.warn(
+                "SimConfig.use_kernel is deprecated and changes nothing: "
+                "the tensor's device picks the kernel (CUDA tensors run the "
+                "CUDA kernels, CPU tensors their plain versions)",
+                DeprecationWarning, stacklevel=2)
+        if not self.fused_engine:
+            raise NotImplementedError(
+                "SimConfig: fused_engine=False (the legacy per-leaf path) is "
+                "not ported to PyTorch yet — ROADMAP Queue A item 4")
 
 
 @dataclasses.dataclass
@@ -229,7 +238,15 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
                    device: Optional[str] = None,
                    init: Optional[Dict[str, np.ndarray]] = None,
                    resume_from: Optional[str] = None) -> History:
-    """Run one simulation-plane federation.
+    """Run (or resume) one simulation-plane federation.
+
+    ``resume_from``: a snapshot file (or a checkpoint directory, meaning its
+    newest snapshot) written by a ``checkpoint_every`` run of the same
+    config, by this port or by the JAX package.  Setup replays from
+    ``cfg.seed`` (the same rng draws), then the model rows, the planner's
+    control state and rng stream, and the history are restored: the
+    continued run is the uninterrupted one's on the control plane, and its
+    learning curve too (batches are drawn per (seed, round, worker)).
 
     ``device`` overrides ``cfg.device`` ("cuda" unless the caller asks for
     "cpu").  ``init`` replaces the port's own initialisation with stacked
@@ -244,18 +261,20 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
     of its own workers, stages only its rows' minibatches (drawn per
     (seed, round, worker) as ever, so identical at every shard count),
     and all-reduces the Eq. 4 partial products or union slab and the
-    Eq. 11 partial sums.
+    Eq. 11 partial sums.  Rank 0 alone writes the snapshots (the blocks
+    gathered, the padding rows left out); on resume every rank reads the
+    snapshot and takes its block.
     """
-    if resume_from is not None:
-        raise NotImplementedError("run_simulation: resume_from (snapshots) "
-                                  "is not ported to PyTorch yet — ROADMAP "
-                                  "Queue A item 3")
+    if resume_from is not None and record_history_for_bound:
+        raise ValueError("resume_from cannot record a bound log: the "
+                         "pre-kill rounds' active/W history is not "
+                         "checkpointed")
     dev = resolve_device(device if device is not None else cfg.device,
                          "run_simulation")
     if cfg.mesh_shards > 1 and not MESH.in_group():
         return MESH.spawn(_sim_rank, cfg.mesh_shards, mechanism, cfg, data,
                           test, record_history_for_bound, str(dev), init,
-                          device=dev)
+                          resume_from, device=dev)
     shd = (FleetSharding.create(cfg.mesh_shards, cfg.n_workers, dev)
            if cfg.mesh_shards > 1 else None)
     if shd is not None:
@@ -336,6 +355,31 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
     if shd is not None:
         hist.mesh_backend = shd.mesh.backend
     bound_log = {"active": [], "W": []} if record_history_for_bound else None
+    run_config = {"plane": "sim", "n_workers": cfg.n_workers,
+                  "seed": cfg.seed, "fused_engine": cfg.fused_engine,
+                  "mesh_shards": cfg.mesh_shards,
+                  "scenario": scen.schedule.name if scen else None}
+
+    # --- resume: overwrite the deterministic setup's mutable state (model
+    # rows, planner state and rng stream, history) with the snapshot's
+    if resume_from is not None:
+        ck = CIO.resolve_snapshot(resume_from)
+        arr_tmpl = {k: np.zeros_like(v)
+                    for k, v in planner.state_dict()["arrays"].items()}
+        model_tmpl = {"buf": np.zeros((cfg.n_workers, flat_spec.n_params),
+                                      np.float32)}
+        CIO.check_resume_config(ck, CIO.read_checkpoint(ck, ())[1],
+                                run_config)
+        model, arrays, extra = CIO.load_checkpoint(ck, model_tmpl, arr_tmpl)
+        planner.load_state({"arrays": arrays,
+                            "scalars": extra["planner_scalars"],
+                            "rng_state": extra["planner_rng"]})
+        restored = torch.from_numpy(model["buf"])
+        buf = (restored.to(dev) if shd is None
+               else shd.put_rows_padded(restored))
+        for k, v in extra["history"].items():
+            if hasattr(hist, k):
+                setattr(hist, k, v)
     horizon = cfg.scan_horizon
     pipe = DispatchPipeline(cfg.pipeline_depth)
     on_card = dev.type == "cuda"
@@ -403,6 +447,23 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
                 token.record()
             pipe.submit(token)
 
+    def save_snapshot(t: int) -> None:
+        """Atomic snapshot of the model rows, the planner's control state
+        and rng stream, and the history; called only after a drain, so the
+        buffer is round-consistent.  Under a mesh rank 0 gathers the blocks
+        (through host memory) and alone writes."""
+        rows = buf if shd is None else shd.gather_rows(buf, device="cpu")
+        if shd is not None and shd.rank != 0:
+            return
+        snap = planner.state_dict()
+        extra = {"round": t, "planner_scalars": snap["scalars"],
+                 "planner_rng": snap["rng_state"],
+                 "history": hist.to_dict(), "config": run_config}
+        CIO.save_checkpoint(CIO.checkpoint_path(cfg.checkpoint_dir, t),
+                            {"buf": rows.cpu().numpy()},
+                            opt_state=snap["arrays"], extra=extra)
+        CIO.prune_checkpoints(cfg.checkpoint_dir, cfg.checkpoint_keep)
+
     hist.setup_wall_s = time.time() - t_wall
     pending: list[PlannedRound] = []
     stop = False
@@ -434,14 +495,17 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
             stop = sim_clock >= cfg.max_sim_time
         else:
             do_eval = t % cfg.eval_every == 0 or t == cfg.n_rounds
-        # scenario event boundaries also flush, keeping mega-rounds from
-        # straddling a fault-phase change
+        # snapshot rounds are flush boundaries in every checkpointing run
+        # (resumed or not), and scenario event boundaries also flush, keeping
+        # mega-rounds from straddling a fault-phase change; eval and
+        # save_snapshot read a drained, round-consistent buffer
+        do_ckpt = cfg.checkpoint_every > 0 and t % cfg.checkpoint_every == 0
         at_boundary = scen is not None and (t + 1) in scen.boundaries
-        if (do_eval or stop or t == cfg.n_rounds or at_boundary
+        if (do_eval or stop or t == cfg.n_rounds or do_ckpt or at_boundary
                 or len(pending) >= horizon):
             flush(pending)
             pending = []
-            if do_eval or stop or at_boundary or t == cfg.n_rounds:
+            if do_eval or stop or do_ckpt or at_boundary or t == cfg.n_rounds:
                 pipe.drain()
         if do_eval:
             t_eval = time.time()
@@ -463,6 +527,10 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
                 hist.completion_time = sim_clock
                 hist.completion_comm_gb = planner.comm_bytes / 1e9
             hist.eval_wall_s += time.time() - t_eval
+        if do_ckpt:
+            # after the eval, so a snapshot at an eval round carries that
+            # round's history point and the resumed run never re-evals it
+            save_snapshot(t)
 
     pipe.drain()
     hist.drain_wall_s += pipe.drain_wall_s
@@ -473,7 +541,8 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
 
 
 def _sim_rank(mechanism, cfg, data, test, record_history_for_bound, device,
-              init):
+              init, resume_from):
     """One rank of a spawned simulation mesh: its share of the run."""
     return run_simulation(mechanism, cfg, data, test,
-                          record_history_for_bound, device=device, init=init)
+                          record_history_for_bound, device=device, init=init,
+                          resume_from=resume_from)

@@ -1,10 +1,11 @@
 """Checkpoint -> serving bridge: put a trained fleet in front of traffic
 (the port of ``repro.serving.bridge``).
 
-``run_lm_federation`` of the JAX package snapshots the whole resident fleet
-as flat ``(N, P)`` f32 buffers (``params|pbuf`` / ``params|obuf`` in an npz
-with a ``__meta__`` json).  This module reads those snapshots as they are
-and turns the buffer back into serving params for :class:`ServeEngine`:
+``run_lm_federation`` (this port's or the JAX package's: one layout,
+``checkpoint.io``) snapshots the whole resident fleet as flat ``(N, P)`` f32
+buffers (``params|pbuf`` / ``params|obuf`` in an npz with a ``__meta__``
+json).  This module reads those snapshots through ``checkpoint.io`` and
+turns the buffer back into serving params for :class:`ServeEngine`:
 
 * the **Eq. 11 global model** — ``alpha @ pbuf`` via
   ``flat_state.weighted_row`` (uniform alpha by default), or
@@ -18,13 +19,13 @@ The FlatSpec comes from the arch's ``init_params`` on the ``meta`` device
 """
 from __future__ import annotations
 
-import json
 import pathlib
 from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from repro_torch.checkpoint import io as CIO
 from repro_torch.configs.base import ModelConfig
 from repro_torch.dfl import flat_state as FS
 from repro_torch.models import registry as R
@@ -40,17 +41,20 @@ def fleet_spec_for(cfg: ModelConfig) -> FS.FlatSpec:
     return FS.tree_spec(R.init_params(cfg, None))
 
 
+def _read_fleet(path: str | pathlib.Path, keys: Tuple[str, ...]
+                ) -> Tuple[Dict[str, np.ndarray], Dict[str, Any]]:
+    blobs, extra = CIO.read_checkpoint(path, keys)
+    if "params|pbuf" not in blobs:
+        raise KeyError(f"{path}: not a fleet checkpoint "
+                       f"(missing params|pbuf)")
+    return blobs, extra
+
+
 def load_fleet_checkpoint(path: str | pathlib.Path
                           ) -> Tuple[np.ndarray, np.ndarray, Dict[str, Any]]:
     """Read a fleet snapshot -> (pbuf (N, P), obuf (N, S), extra metadata)."""
-    with np.load(path, allow_pickle=False) as z:
-        if "params|pbuf" not in z.files:
-            raise KeyError(f"{path}: not a fleet checkpoint "
-                           f"(missing params|pbuf; keys={z.files[:5]}...)")
-        pbuf = z["params|pbuf"]
-        obuf = z["params|obuf"]
-        meta = json.loads(str(z["__meta__"]))
-    return pbuf, obuf, meta.get("extra", {})
+    blobs, extra = _read_fleet(path, ("params|pbuf", "params|obuf"))
+    return blobs["params|pbuf"], blobs["params|obuf"], extra
 
 
 def serving_params_from_checkpoint(
@@ -63,7 +67,8 @@ def serving_params_from_checkpoint(
     ``alpha`` weights (uniform if omitted); ``worker=i`` yields worker i's
     own model, bit for bit its training-time params."""
     dev = resolve_device(device, "serving_params_from_checkpoint")
-    pbuf, _, extra = load_fleet_checkpoint(path)
+    blobs, extra = _read_fleet(path, ("params|pbuf",))    # not the opt
+    pbuf = blobs["params|pbuf"]
     ck_arch = (extra.get("config") or {}).get("arch")
     if ck_arch is not None and ck_arch != cfg.arch_id:
         raise ValueError(f"checkpoint was trained on arch {ck_arch!r}, "

@@ -108,16 +108,18 @@ class FleetSharding:
             dist.all_reduce(piece)
         return x
 
-    def gather_rows(self, block: torch.Tensor) -> Optional[torch.Tensor]:
+    def gather_rows(self, block: torch.Tensor,
+                    device=None) -> Optional[torch.Tensor]:
         """Assemble the ``(n_rows, C)`` buffer from every rank's ``(block,
-        C)`` block: rank 0 gets it on its device, the others None.  Gloo
-        gathers through host memory, in column pieces of at most 2^26
-        elements per rank."""
+        C)`` block: rank 0 gets it on ``device`` (its own by default), the
+        others None; the padding rows are left out.  Gloo gathers through
+        host memory, in column pieces of at most 2^26 elements per rank."""
         rows, cols = block.shape
         via = (self.device if self.mesh.backend == "nccl"
                else torch.device("cpu"))
+        dest = self.device if device is None else torch.device(device)
         full = (torch.empty((self.n_rows, cols), dtype=block.dtype,
-                            device=self.device) if self.rank == 0 else None)
+                            device=dest) if self.rank == 0 else None)
         step = max(1, _CHUNK // max(rows, 1))
         for c0 in range(0, cols, step):
             piece = block[:, c0:c0 + step].to(via).contiguous()
@@ -126,5 +128,5 @@ class FleetSharding:
             dist.gather(piece, parts, dst=0)
             if full is not None:
                 full[:, c0:c0 + step] = torch.cat(parts)[:self.n_rows].to(
-                    self.device)
+                    dest)
         return full

@@ -10,6 +10,7 @@ package's ``run_lm_federation`` writes (as ``tests/test_serving.py``'s
 model to f32 tolerance (1e-6: the same ``alpha @ pbuf`` summed in another
 order), greedy streams as the reference's (bf16: equal but at a step where
 the reference's top-2 gap is under 0.1, see ``tests/test_torch_serving.py``).
+A snapshot the port's own ``run_lm_federation`` writes serves the same way.
 """
 import dataclasses
 import os
@@ -27,8 +28,11 @@ from repro_torch.serving import (ARRIVAL_PRESETS, GenerationConfig,
                                  engine_from_checkpoint,
                                  serving_params_from_checkpoint,
                                  generate_requests)
+from repro_torch.dfl import flat_state as T_FS
 from repro_torch.serving import bridge as T_BR
 from repro_torch.tree import tree_paths
+from test_torch_resume import _one_torch_thread  # noqa: F401
+from test_torch_resume import one_torch_thread
 from test_torch_serving import BF16_TOL, _reference, reference_logits
 
 TRAFFIC = [TrafficConfig(process="poisson", rate=5.0, n_requests=16, seed=3),
@@ -213,6 +217,65 @@ def test_bridge_rejects_wrong_geometry(trained_fleet):
                      lambda: engine_from_checkpoint(ck, cfg)):
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
+
+
+@pytest.fixture(scope="module")
+def port_fleet(tmp_path_factory):
+    """A tiny LM fleet trained by the port, and its latest snapshot."""
+    from repro_torch.checkpoint import io as T_CIO
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl import lm_worker as T_LW
+    cfg = T_R.get_smoke_config("smollm-135m")
+    ckdir = tmp_path_factory.mktemp("port_fleet_ck")
+    run = T_LW.LMRunConfig(n_workers=3, n_rounds=4, batch=2, seq=16,
+                           eval_every=2, seed=1, checkpoint_every=2,
+                           checkpoint_dir=str(ckdir))
+    with one_torch_thread():
+        fleet, _ = T_LW.run_lm_federation(
+            DySTop(V=3.0, t_thre=3, max_neighbors=3), cfg, run, device="cpu")
+    ck = T_CIO.latest_checkpoint(ckdir)
+    assert ck is not None and ck.name == "ckpt_round000004.npz"
+    return cfg, fleet, ck
+
+
+@pytest.mark.usefixtures("_one_torch_thread")
+def test_bridge_serves_a_port_snapshot(port_fleet):
+    """A snapshot the port wrote serves as one the JAX package wrote: worker
+    rows bit for bit the fleet's, the Eq. 11 global model the fleet's
+    ``alpha @ pbuf``, every request served; the JAX package's bridge reads
+    the same parameters from it."""
+    cfg, fleet, ck = port_fleet
+    spec = T_BR.fleet_spec_for(cfg)
+    for w in (0, 2):
+        got = serving_params_from_checkpoint(ck, cfg, worker=w, device="cpu")
+        want = T_FS.unravel_tree(fleet.pbuf[w], spec, copy=True)
+        for (pa, a), (pb, b) in zip(tree_paths(got), tree_paths(want)):
+            assert pa == pb and a.dtype == b.dtype
+            assert torch.equal(a, b)
+    glob = serving_params_from_checkpoint(ck, cfg, device="cpu")
+    want = T_FS.unravel_tree(T_FS.weighted_row(
+        fleet.pbuf, torch.full((3,), 1 / 3)), spec, copy=True)
+    for (_, a), (_, b) in zip(tree_paths(glob), tree_paths(want)):
+        assert torch.equal(a, b)
+    reqs = generate_requests(TrafficConfig(n_requests=2, prompt_len=(3, 6),
+                                           gen_len=(2, 4), seed=2),
+                             cfg.vocab_size)
+    for worker in (None, 0):
+        eng = engine_from_checkpoint(ck, cfg, worker=worker, batch_slots=2,
+                                     max_len=32, device="cpu")
+        rids = [eng.submit(r.prompt, r.gen) for r in reqs]
+        out = eng.run()
+        assert [len(out[i]) for i in rids] == [r.gen.max_new_tokens
+                                               for r in reqs]
+    pytest.importorskip("jax")
+    from repro.models import registry as R_R
+    from repro.serving import bridge as R_BR
+    ref = R_BR.serving_params_from_checkpoint(
+        ck, R_R.get_smoke_config("smollm-135m"), worker=2)
+    for (_, a), b in zip(tree_paths(serving_params_from_checkpoint(
+            ck, cfg, worker=2, device="cpu")), _leaves(ref)):
+        np.testing.assert_array_equal(a.float().numpy(),
+                                      b.astype(np.float32))
 
 
 # -- launch/serve.py -------------------------------------------------------------

@@ -31,8 +31,11 @@ def test_port_imports_with_jax_absent():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 15
-    # the mesh slice's modules are among those imported and scanned
-    assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh"} \
+    # the mesh slice's modules, the baselines, the convergence bound and
+    # checkpointing are among those imported and scanned
+    assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh",
+            "repro_torch.core.baselines", "repro_torch.core.convergence",
+            "repro_torch.checkpoint", "repro_torch.checkpoint.io"} \
         <= set(mods)
 
 
@@ -69,13 +72,27 @@ def test_run_simulation_defaults_to_the_card():
 
 @pytest.mark.parametrize("kw, item", [
     (dict(fused_engine=False), 4),
-    (dict(mesh_shards=2, fused_engine=False), 4),
-    (dict(checkpoint_every=5, checkpoint_dir="snap"), 3),
-    (dict(use_kernel=True), 6)])
+    (dict(mesh_shards=2, fused_engine=False), 4)])
 def test_unported_paths_name_their_roadmap_item(kw, item):
     from repro_torch.dfl.simulator import SimConfig
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
         SimConfig(**kw)
+
+
+def test_use_kernel_alias_warns_and_changes_nothing():
+    """The JAX package's deprecated ``use_kernel`` boolean: the tensor's
+    device picks the kernel here, so it warns and the run is the same."""
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl.simulator import SimConfig, run_simulation
+    kw = dict(n_workers=6, n_rounds=6, n_samples=600, hidden=8,
+              eval_every=3)
+    with pytest.warns(DeprecationWarning, match="use_kernel"):
+        cfg = SimConfig(use_kernel=True, **kw)
+    got = run_simulation(DySTop(), cfg, device="cpu")
+    want = run_simulation(DySTop(), SimConfig(**kw), device="cpu")
+    for f in ("rounds", "sim_time", "comm_gb", "round_active",
+              "acc_global", "loss_global"):
+        assert getattr(got, f) == getattr(want, f), f
 
 
 @pytest.mark.parametrize("kw", [

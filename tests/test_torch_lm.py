@@ -247,10 +247,6 @@ def test_run_lm_federation_defaults_to_the_card():
 @pytest.mark.parametrize("make, item", [
     (lambda: T_LW.LMRunConfig(resident_fleet=False), 4),
     (lambda: T_LW.LMRunConfig(mesh_shards=2, resident_fleet=False), 4),
-    (lambda: T_LW.LMRunConfig(checkpoint_every=5, checkpoint_dir="snap"), 3),
-    (lambda: T_LW.LMRunConfig(use_kernel=True), 6),
-    (lambda: T_LW.run_lm_federation(_mech(), _cfg(), T_LW.LMRunConfig(),
-                                    resume_from="snap"), 3),
     (lambda: T_R.get_config("recurrentgemma-2b"), 6),
     (lambda: T_R.get_smoke_config("seamless-m4t-medium"), 6),
     (lambda: T_R.get_config("paligemma-3b"), 6),
@@ -259,6 +255,22 @@ def test_run_lm_federation_defaults_to_the_card():
 def test_lm_unported_paths_name_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
         make()
+
+
+def test_use_kernel_alias_warns_and_changes_nothing():
+    """The JAX package's deprecated ``use_kernel`` boolean: the tensor's
+    device picks the kernel here, so it warns and the run is the same."""
+    from test_torch_resume import one_torch_thread
+    kw = dict(KW, n_rounds=3)
+    with pytest.warns(DeprecationWarning, match="use_kernel"):
+        run = T_LW.LMRunConfig(use_kernel=True, **kw)
+    with one_torch_thread():
+        fa, ha = T_LW.run_lm_federation(_mech(), _cfg("float32"), run,
+                                        device="cpu")
+        fb, hb = _port_run(n_rounds=3)
+    for f in CONTROL + ("loss_global", "round_loss"):
+        assert getattr(ha, f) == getattr(hb, f), f
+    assert torch.equal(fa.pbuf, fb.pbuf)
 
 
 def test_attention_decode_and_cross_branches_name_serving():
