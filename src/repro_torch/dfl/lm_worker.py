@@ -113,7 +113,6 @@ def init_fleet(cfg: ModelConfig, n_workers: int, optimizer: str = "adam",
     the CPU start alike, then raveled once into the resident buffers.
     With ``shd`` the buffers are this rank's block (its real rows w_0, its
     padding rows zero): the same draw at every shard count."""
-    R.check_trainable(cfg)
     opt = get_optimizer(optimizer, lr)
     params = R.init_params(cfg, torch.Generator().manual_seed(seed))
     params = tree_map(lambda leaf: leaf.to(device), params)
@@ -571,7 +570,6 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     two moments) through the host and holds the whole fleet on rank 0's
     device beside its optimizer-state block.
     """
-    R.check_trainable(cfg)
     dev = resolve_device(device if device is not None else run.device,
                          "run_lm_federation")
     if run.mesh_shards > 1 and not MESH.in_group():

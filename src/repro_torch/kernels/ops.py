@@ -11,13 +11,15 @@ code runs in the backward pass only, never in the forward.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import flash_attention as _fa
+from repro_torch.kernels import moe_router as _mr
 from repro_torch.kernels import ssd_chunk as _sc
-from repro_torch.kernels.ref import flash_attention_plain, ssd_chunk_plain
+from repro_torch.kernels.ref import (flash_attention_plain, moe_router_plain,
+                                     ssd_chunk_plain)
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -63,3 +65,34 @@ def ssd_chunk_diff(Bc: torch.Tensor, Cc: torch.Tensor, cum_la: torch.Tensor,
     """Differentiable intra-chunk SSD over (G, Q, N) B/C, (G, H, Q) log
     decays and (G, H, Q, P) inputs (``kernels.ssd_chunk``)."""
     return _SSDChunk.apply(Bc, Cc, cum_la, xbar)
+
+
+class _MoERouter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, logits, top_k):
+        ctx.save_for_backward(logits)
+        ctx.top_k = top_k
+        gates, ids = _mr.moe_router(logits, top_k)
+        ctx.mark_non_differentiable(ids)
+        return gates, ids
+
+    @staticmethod
+    def backward(ctx, g_gates, _g_ids):
+        (logits,) = ctx.saved_tensors
+        logits = logits.detach().requires_grad_()
+        with torch.enable_grad():
+            gates, _ = moe_router_plain(logits, ctx.top_k)
+        (g,) = torch.autograd.grad(gates, logits, g_gates)
+        return g, None
+
+
+def moe_router_diff(logits: torch.Tensor, top_k: int
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Differentiable router over f32 logits (T, E) -> (gates (T, k) f32,
+    ids (T, k) int32, no gradient) (``kernels.moe_router``).
+
+    One launch gives both outputs.  The JAX package launches its kernel
+    twice, the second time for the ids alone, to keep a float0 tangent out
+    of the integer slot arithmetic; autograd has no such constraint, and
+    the ids are simply marked non-differentiable."""
+    return _MoERouter.apply(logits, top_k)

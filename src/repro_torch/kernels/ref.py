@@ -90,8 +90,8 @@ def moe_router_plain(logits: torch.Tensor, top_k: int
         g = remaining.max(dim=-1, keepdim=True).values
         a = torch.where(remaining == g, cols, probs.shape[-1]).min(
             dim=-1, keepdim=True).values
-        gates.append(g)
-        ids.append(a)
+        gates.append(torch.gather(probs, -1, a))   # == g; its gradient
+        ids.append(a)                              # goes to the chosen id
         remaining = torch.where(cols == a, -1.0, remaining)
     g = torch.cat(gates, dim=-1)
     g = g / torch.clamp(g.sum(dim=-1, keepdim=True), min=1e-9)

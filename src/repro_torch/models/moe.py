@@ -16,9 +16,13 @@ at ``e * B * C + b * C + position``; the expert products are the same.
 ``per_row=False`` (the default) is the JAX package's ``moe_ffn``: one group
 of all B * S tokens.
 
-Training the moe family (the router's gradient and the aux loss in the LM
-fleet) is not ported: ROADMAP Queue A item 6.  The logical-axes trees are
-not ported (nothing on one card reads them).
+Training: the gates carry the router's gradient (``kernels.ops.
+moe_router_diff``: the kernel's forward, the plain version's backward), and
+``route`` returns the Switch-style load-balance term, which the registry's
+``compute_loss`` adds at ``router_aux_weight``.  Dropped choices land on a
+dummy row that is discarded before the expert products, so they add
+nothing to any gradient.  The logical-axes trees are not ported (nothing
+on one card reads them).
 """
 from __future__ import annotations
 
@@ -27,7 +31,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.kernels import moe_router as MR
+from repro_torch.kernels import ops as K
 from repro_torch.models.layers import _dense_init, _dtype, gelu, silu
 
 Params = Dict[str, Any]
@@ -63,10 +67,11 @@ def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:
 def route(cfg: ModelConfig, router: torch.Tensor, x: torch.Tensor
           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (T, D) -> (gates (T, k) f32 renormalised, expert ids (T, k) int32,
-    the Switch-style load-balance aux term E * sum_e f_e * p_e)."""
+    the Switch-style load-balance aux term E * sum_e f_e * p_e).  The gates
+    and p_e carry the router's gradient; f_e, read from the ids, none."""
     m = cfg.moe
     logits = x.float() @ router                                  # (T, E) f32
-    gates, eids = MR.moe_router(logits, m.top_k)
+    gates, eids = K.moe_router_diff(logits, m.top_k)
     probs = torch.softmax(logits, dim=-1)
     pe = probs.mean(dim=0)
     fe = torch.zeros_like(logits).scatter_(1, eids.long(), 1.0).mean(dim=0)

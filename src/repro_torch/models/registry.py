@@ -3,11 +3,11 @@
 The port of ``repro.models.registry``.  The LM fleet talks only to
 ``init_params``, ``compute_loss`` and ``forward_logits``; serving to
 ``init_decode_cache`` and ``serve_step``.  Every arch id of the JAX package
-is listed in ``ARCH_IDS``; the dense ones, mamba2-2.7b (ssm), grok-1-314b
-and kimi-k2-1t-a32b (moe) resolve, the rest raise ``NotImplementedError``
-naming their ROADMAP item.  The moe family serves but does not train yet:
-``compute_loss`` raises on it (ROADMAP Queue A item 6: the MoE fleet, with
-the router's gradient and the aux loss).
+is listed in ``ARCH_IDS``; the dense ones, mamba2-2.7b (ssm),
+recurrentgemma-2b (hybrid), grok-1-314b and kimi-k2-1t-a32b (moe) resolve,
+the rest raise ``NotImplementedError`` naming their ROADMAP item.  ``compute_loss`` returns the cross-entropy
+plus ``router_aux_weight`` times the MoE load-balance term (0 for a family
+without MoE), as the JAX package's does.
 """
 from __future__ import annotations
 
@@ -46,15 +46,6 @@ def has_prefix(cfg: ModelConfig) -> bool:
     return cfg.family == "vlm"
 
 
-def check_trainable(cfg: ModelConfig) -> None:
-    """Raise for a family the port serves but does not train (moe)."""
-    if cfg.family == "moe":
-        raise NotImplementedError(
-            f"{cfg.arch_id}: training the moe family (the router's gradient "
-            f"and the aux loss in the LM fleet) is not ported to PyTorch yet "
-            f"— ROADMAP Queue A item 6")
-
-
 def init_params(cfg: ModelConfig, gen: Optional[torch.Generator]) -> Params:
     """One replica's params, drawn from ``gen`` on the generator's device
     (``None``: shapes and dtypes on the ``meta`` device)."""
@@ -70,11 +61,12 @@ def forward_logits(cfg: ModelConfig, params: Params,
 def compute_loss(cfg: ModelConfig, params: Params,
                  batch: Dict[str, torch.Tensor]
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    check_trainable(cfg)
-    logits = forward_logits(cfg, params, batch)
+    """(ce + router_aux_weight * moe_aux, {"ce", "moe_aux"})."""
+    logits, aux = T.forward(cfg, params, batch["tokens"])
     ce = L.softmax_cross_entropy(logits, batch["labels"],
                                  batch.get("loss_mask"))
-    return ce, {"ce": ce}
+    aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
+    return ce + aux_w * aux, {"ce": ce, "moe_aux": aux}
 
 
 def init_decode_cache(cfg: ModelConfig, shape: ShapeSpec,

@@ -1,20 +1,21 @@
-"""The decoder of the dense, moe and ssm families (the port of
+"""The decoder of the dense, moe, ssm and hybrid families (the port of
 ``repro.models.transformer``).
 
 Layer stacking keeps the JAX package's param layout: ``prelude`` (explicit
 leading layers, e.g. kimi-k2's first dense layer), ``blocks`` (the repeating
 pattern period, each leaf stacked on a leading group axis) and ``coda`` (the
-remainder).  The JAX package drives ``blocks`` with ``lax.scan``; here a
-Python loop indexes the group axis.  The layout is what makes the flat
-column order match the reference's.  The ``dense``, ``moe`` and ``ssm``
-families are ported; the other families raise ``NotImplementedError``
-naming their ROADMAP item.
+remainder, e.g. recurrentgemma's 26 = 8 * 3 + 2 layers).  The JAX package
+drives ``blocks`` with ``lax.scan``; here a Python loop indexes the group
+axis.  The layout is what makes the flat column order match the
+reference's.  The ``dense``, ``moe``, ``ssm`` and ``hybrid`` (RG-LRU and
+local attention, ``models/rglru.py``) families are ported; the other
+families raise ``NotImplementedError`` naming their ROADMAP item.
 
 Decoding keeps the JAX package's cache layout (``init_cache``: ``pos``, then
-per layer a KV ring with absolute ``k_pos`` or an SSM state and conv tail,
-blocks stacked on the group axis) and updates it in place: ``decode_step``
-writes each layer's new rows into the cache's tensors and advances
-``cache["pos"]``.  ``pos`` is a 0-dim tensor, as in the JAX package, or a
+per layer a KV ring with absolute ``k_pos`` or a recurrent (SSM or RG-LRU)
+state and conv tail, blocks stacked on the group axis) and updates it in
+place: ``decode_step`` writes each layer's new rows into the cache's
+tensors and advances ``cache["pos"]``.  ``pos`` is a 0-dim tensor, as in the JAX package, or a
 (B,) tensor: then every row has its own position clock (rope, ring slot,
 ``k_pos`` mask) and MoE layers route each row as a capacity group of its
 own, which is what the JAX serving engine gets by vmapping a one-row step.
@@ -28,15 +29,14 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as S
 from repro_torch.tree import tree_map, tree_paths
 
 Params = Dict[str, Any]
 
-_PORTED_FAMILIES = ("dense", "moe", "ssm")
+_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
 _UNPORTED_FAMILIES = {
-    "hybrid": "ROADMAP Queue A item 6: the hybrid family (recurrentgemma, "
-              "models/rglru.py)",
     "vlm": "ROADMAP Queue A item 6: the vlm family (paligemma)",
     "encdec": "ROADMAP Queue A item 6: the encdec/audio family",
     "audio": "ROADMAP Queue A item 6: the encdec/audio family",
@@ -44,7 +44,8 @@ _UNPORTED_FAMILIES = {
 
 
 def check_family(arch_id: str, family: str) -> None:
-    """Raise unless ``family`` is one the port runs (dense, moe, ssm)."""
+    """Raise unless ``family`` is one the port runs (dense, moe, ssm,
+    hybrid)."""
     if family not in _PORTED_FAMILIES:
         why = _UNPORTED_FAMILIES.get(family, "ROADMAP Queue A item 6")
         raise NotImplementedError(
@@ -61,6 +62,8 @@ def pattern(cfg: ModelConfig) -> Tuple[str, ...]:
     check_family(cfg.arch_id, cfg.family)
     if cfg.family == "ssm":
         return ("ssm",)
+    if cfg.family == "hybrid":
+        return tuple(cfg.block_pattern or ("rglru", "rglru", "attn_local"))
     if cfg.attn_pattern == "local_global":
         return ("attn_local", "attn")
     if cfg.attn_pattern == "local":
@@ -87,6 +90,8 @@ def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str,
     p: Params = {"ln1": L.init_rmsnorm(cfg, dev)}
     if kind in ("attn", "attn_local"):
         p["attn"] = L.init_attention(gen, cfg)
+    elif kind == "rglru":
+        p["rglru"] = RG.init_rglru(gen, cfg)
     elif kind == "ssm":
         p["ssm"] = S.init_ssm(gen, cfg)
     has_ffn = cfg.d_ff > 0
@@ -143,6 +148,8 @@ def apply_layer(cfg: ModelConfig, p: Params, kind: str, x: torch.Tensor,
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
         y = S.ssm_forward(cfg, p["ssm"], h)
+    elif kind == "rglru":
+        y = RG.rglru_forward(cfg, p["rglru"], h)
     else:
         y, _ = L.multihead_attention(cfg, p["attn"], h,
                                      _attn_spec(cfg, kind), positions)
@@ -158,6 +165,8 @@ def decode_layer(cfg: ModelConfig, p: Params, kind: str, cache: Params,
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
         y, _ = S.ssm_decode_step(cfg, p["ssm"], cache, h)
+    elif kind == "rglru":
+        y, _ = RG.rglru_decode_step(cfg, p["rglru"], cache, h)
     else:
         y = _ring_attention_step(cfg, p["attn"], h, cache, pos,
                                  _attn_spec(cfg, kind))
@@ -204,6 +213,8 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
                 "v": torch.zeros(shape, dtype=dtype, device=device),
                 "k_pos": torch.full((batch, w), -1, dtype=torch.int32,
                                     device=device)}
+    if kind == "rglru":
+        return RG.init_rglru_cache(cfg, batch, dtype, device)
     return S.init_ssm_cache(cfg, batch, dtype, device)
 
 

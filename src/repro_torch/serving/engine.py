@@ -23,8 +23,8 @@ seed, request id).  The JAX package's threefry draws are not reproduced:
 greedy streams are what the two packages share.
 
 Everything runs on ``device`` ("cuda" unless the caller asks for "cpu");
-the params must already be there.  Decoder-only families; enc-dec decoding
-raises (ROADMAP Queue A item 6).
+the params must already be there.  Decoder-only families (dense, moe, ssm,
+hybrid); enc-dec decoding raises (ROADMAP Queue A item 6).
 """
 from __future__ import annotations
 
@@ -163,7 +163,8 @@ class ServeEngine:
                                         device=self.device)
         # one fresh single-row cache, copied into a slot at admission:
         # attention rows mask themselves (k_pos > pos excludes stale
-        # entries) but the ssm state and conv tail must be zeroed
+        # entries) but recurrent state (the ssm state, the rglru h, their
+        # conv tails) must be zeroed per request
         self._fresh_row = R.init_decode_cache(
             cfg, ShapeSpec("serve", max_len, 1, "decode"), self.device)
         self.slots = [_Slot() for _ in range(batch_slots)]

@@ -293,7 +293,7 @@ def test_serve_cli_runs_grok_smoke_on_the_cpu():
     assert "arch=grok-1-314b-smoke batch=2 device=cpu" in out.stdout
 
 
-@pytest.mark.parametrize("arch", ["seamless-m4t-medium", "recurrentgemma-2b"])
+@pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
 def test_serve_unported_families_name_their_item(arch):
     with pytest.raises(NotImplementedError, match="Queue A item 6"):
         T_SERVE.serve(arch, True, 1, 4, 2, device="cpu")

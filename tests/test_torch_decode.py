@@ -26,6 +26,7 @@ from repro_torch.models import registry as T_R
 from repro_torch.models import ssm as T_S
 from repro_torch.models import transformer as T_T
 from repro_torch.tree import tree_leaves
+from test_torch_resume import _one_torch_thread  # noqa: F401
 
 TOL = {"float32": 5e-5, "bfloat16": 0.1}
 CASES = [("smollm-135m", None, 16), ("gemma2-2b", 8, 40),

@@ -31,12 +31,14 @@ def test_port_imports_with_jax_absent():
                          capture_output=True, text=True, timeout=240)
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 15
-    # the mesh slice's modules, the baselines, the convergence bound and
-    # checkpointing are among those imported and scanned
+    # the mesh slice's modules, the baselines, the convergence bound,
+    # checkpointing and the hybrid family are among those imported and
+    # scanned
     assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh",
             "repro_torch.core.baselines", "repro_torch.core.convergence",
-            "repro_torch.checkpoint", "repro_torch.checkpoint.io"} \
-        <= set(mods)
+            "repro_torch.checkpoint", "repro_torch.checkpoint.io",
+            "repro_torch.models.rglru",
+            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(

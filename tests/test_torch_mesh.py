@@ -40,6 +40,7 @@ from repro_torch.kernels import aggregate as T_AGG
 from repro_torch.kernels import fused_sgd as T_FSGD
 from repro_torch.launch import mesh as T_MESH
 from repro_torch.sharding.rules import FleetSharding
+from test_torch_resume import _one_torch_thread  # noqa: F401
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 CONTROL = ("rounds", "sim_time", "comm_gb", "round_active", "staleness_avg",

@@ -11,6 +11,11 @@ router (``KernelConfig(backend="pallas")``) or its ``lax.top_k`` path: f32
 to 1e-5 absolute (measured 1.3e-6); bf16 to two bf16 ulps of the value
 (rtol 2^-7) plus 4e-3 (measured: at most 0.07% of the outputs apart, by at
 most 3.9e-3, the sums of the expert products in another order).
+Training: ``moe_router_diff`` against the JAX package's in interpret mode
+(ids identical, gates and the logits' gradient within 1e-6), grok smoke's
+``compute_loss`` with its ``moe_aux`` and every gradient against
+``jax.value_and_grad`` at ``tests/test_torch_models.py``'s tolerances, and
+a 9-round federation at ``tests/test_torch_lm.py``'s.
 The CUDA kernel runs only on a card (``test_cuda_moe_router_matches_plain``,
 marker ``cuda``).
 """
@@ -25,6 +30,7 @@ from repro_torch.kernels import moe_router as T_MR
 from repro_torch.models import moe as T_M
 from repro_torch.models import registry as T_R
 from repro_torch.tree import tree_paths
+from test_torch_resume import _one_torch_thread  # noqa: F401
 
 MOE = ("grok-1-314b", "kimi-k2-1t-a32b")
 
@@ -44,7 +50,7 @@ def _logits(t, e, seed, ties=False):
     if ties:
         x[0] = 1.0
         x[1] = -5.0
-        x[1, [2, 5]] = 2.0
+        x[1, [2, min(5, e - 1)]] = 2.0
         x[2, : e // 2] = 1e4
         x[2, e // 2:] = -1e4
         x[3] = np.where(np.arange(e) % 3 == 0, 0.5, -0.5)
@@ -53,8 +59,11 @@ def _logits(t, e, seed, ties=False):
     return x
 
 
+# E = 4 is the moe smoke fleet's routing (the kernel's 8-lane segment half
+# empty)
 ROUTER_CASES = [(8, 8, 2, False), (300, 8, 2, False), (64, 384, 8, False),
-                (16, 8, 2, True), (16, 384, 8, True)]
+                (16, 8, 2, True), (16, 384, 8, True), (128, 4, 2, False),
+                (16, 4, 2, True)]
 
 
 @pytest.mark.parametrize("t, e, k, ties", ROUTER_CASES)
@@ -205,22 +214,185 @@ def test_moe_configs_and_layout_match_reference(arch):
         assert got == want
 
 
-def test_moe_family_does_not_train_yet():
-    cfg = T_R.get_smoke_config("grok-1-314b")
+def test_moe_family_trains():
+    """``compute_loss`` on grok smoke is ce + router_aux_weight * moe_aux,
+    and every leaf, the router's among them, gets a finite gradient."""
+    cfg = dataclasses.replace(T_R.get_smoke_config("grok-1-314b"),
+                              dtype="float32")
     p = T_R.init_params(cfg, torch.Generator().manual_seed(0))
-    batch = {"tokens": torch.zeros((1, 4), dtype=torch.int64),
-             "labels": torch.zeros((1, 4), dtype=torch.int64)}
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        T_R.compute_loss(cfg, p, batch)
+    g = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 16), generator=g)
+    batch = {"tokens": tok, "labels": torch.roll(tok, 1, dims=1)}
+    leaves = [leaf.requires_grad_() for _, leaf in tree_paths(p)]
+    loss, parts = T_R.compute_loss(cfg, p, batch)
+    assert cfg.moe.router_aux_weight == 1e-2
+    assert float(parts["moe_aux"].detach()) > 0
+    torch.testing.assert_close(loss, parts["ce"] + 1e-2 * parts["moe_aux"],
+                               rtol=0, atol=0)
+    grads = torch.autograd.grad(loss, leaves)
+    for (path, _), gr in zip(tree_paths(p), grads):
+        assert bool(torch.isfinite(gr).all()) and bool(gr.abs().sum() > 0), \
+            path
     logits = T_R.forward_logits(cfg, p, batch)      # inference runs
-    assert logits.shape == (1, 4, 1024) and bool(torch.isfinite(
-        logits[..., :cfg.vocab_size]).all())
+    assert logits.shape == (2, 16, 1024)
+
+
+ROUTER_DIFF_CASES = [(16, 8, 2, True), (64, 384, 8, False)]
+
+
+@pytest.mark.parametrize("t, e, k, ties", ROUTER_DIFF_CASES)
+def test_moe_router_diff_matches_reference(t, e, k, ties):
+    """``ops.moe_router_diff`` against the JAX package's in interpret mode:
+    ids identical, gates and the logits' gradient (of a random weighting
+    of the gates) within 1e-6; the ids carry no gradient."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels import ops as R_K
+    from repro.kernels.config import KernelConfig
+    from repro_torch.kernels import ops as T_K
+    x = _logits(t, e, t + e, ties)
+    w = np.random.default_rng(e).normal(size=(t, k)).astype(np.float32)
+    kc = KernelConfig(backend="pallas")
+    with jax.default_device(jax.devices("cpu")[0]):
+        r_gates, r_ids = R_K.moe_router_diff(jnp.asarray(x), k, kc)
+        r_grad = jax.grad(lambda l: jnp.sum(
+            R_K.moe_router_diff(l, k, kc)[0] * w))(jnp.asarray(x))
+    xt = torch.from_numpy(x).requires_grad_()
+    gates, ids = T_K.moe_router_diff(xt, k)
+    assert not ids.requires_grad and ids.dtype == torch.int32
+    (grad,) = torch.autograd.grad((gates * torch.from_numpy(w)).sum(), xt)
+    np.testing.assert_array_equal(ids.numpy(), np.asarray(r_ids))
+    np.testing.assert_allclose(gates.detach().numpy(), np.asarray(r_gates),
+                               atol=1e-6, rtol=0)
+    np.testing.assert_allclose(grad.numpy(), np.asarray(r_grad), atol=1e-6,
+                               rtol=0)
+    assert bool(torch.isfinite(grad).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compute_loss_and_router_grads_match_reference(dtype):
+    """grok smoke, from the reference's init, the reference routing
+    through its Pallas router and flash kernel in interpret mode: the loss,
+    its ``moe_aux`` and every gradient, the router's included, at
+    ``tests/test_torch_models.py``'s tolerances (f32: 1e-5 on the loss,
+    1e-4 on the gradients; bf16: 2e-3, atol 5e-3 and rtol 5e-2).
+    ``moe_aux``: rtol 1e-6 in f32; 1e-4 in bf16, where the router reads
+    activations that round at other places in the two packages (the ids,
+    and so f_e, agree)."""
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.kernels.config import KernelConfig
+    from repro.models import registry as R_R
+    r_cfg = dataclasses.replace(R_R.get_smoke_config("grok-1-314b"),
+                                dtype=dtype,
+                                kernels=KernelConfig(backend="pallas"))
+    rng = np.random.default_rng(5)
+    tok = rng.integers(0, r_cfg.vocab_size, size=(2, 32)).astype(np.int32)
+    lab = rng.integers(0, r_cfg.vocab_size, size=(2, 32)).astype(np.int32)
+    with jax.default_device(jax.devices("cpu")[0]):
+        r_params, _ = R_R.init_params(r_cfg, jax.random.PRNGKey(0))
+        batch = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab),
+                 "loss_mask": jnp.ones((2, 32), jnp.float32)}
+        (r_loss, r_parts), r_grads = jax.value_and_grad(
+            lambda p: R_R.compute_loss(r_cfg, p, batch), has_aux=True)(
+                r_params)
+    params = T_FS.params_from_reference(_paths(r_params), "cpu")
+    flat = [leaf.requires_grad_() for _, leaf in tree_paths(params)]
+    cfg = dataclasses.replace(T_R.get_smoke_config("grok-1-314b"),
+                              dtype=dtype)
+    loss, parts = T_R.compute_loss(cfg, params, {
+        "tokens": torch.from_numpy(tok), "labels": torch.from_numpy(lab),
+        "loss_mask": torch.ones((2, 32))})
+    grads = torch.autograd.grad(loss, flat)
+    f32 = dtype == "float32"
+    np.testing.assert_allclose(float(parts["moe_aux"].detach()),
+                               float(r_parts["moe_aux"]),
+                               rtol=1e-6 if f32 else 1e-4)
+    np.testing.assert_allclose(float(loss.detach()), float(r_loss),
+                               atol=1e-5 if f32 else 2e-3)
+    routers = 0
+    for (path, _), got, want in zip(tree_paths(params), grads,
+                                    jax.tree.leaves(r_grads)):
+        want = np.asarray(want.astype(jnp.float32))
+        routers += path[-1] == "router"
+        if f32:
+            np.testing.assert_allclose(got.numpy(), want, atol=1e-4, rtol=0,
+                                       err_msg=str(path))
+        else:
+            np.testing.assert_allclose(got.float().numpy(), want, atol=5e-3,
+                                       rtol=5e-2, err_msg=str(path))
+    assert routers == 1                     # the stacked router of 2 layers
+
+
+def test_dropped_choices_give_zero_gradient():
+    """Choices past an expert's capacity land on the dummy row, which is
+    discarded before the expert products: a token whose every choice is
+    dropped gets a zero output and a zero input gradient, and the expert
+    weights' gradient is what the kept tokens alone give."""
+    cfg = dataclasses.replace(T_R.get_smoke_config("grok-1-314b"),
+                              dtype="float32")
+    p = T_M.init_moe(torch.Generator().manual_seed(0), cfg)
+    g = torch.Generator().manual_seed(1)
+    # 24 near-copies of one token pick the same two experts: capacity 16
+    # keeps the first 16 and drops both choices of the last 8
+    x = (torch.randn((1, 1, cfg.d_model), generator=g)
+         + 0.01 * torch.randn((1, 24, cfg.d_model), generator=g))
+    _, eids, _ = T_M.route(cfg, p["router"], x[0])
+    assert bool((eids == eids[0]).all())
+    assert T_M.expert_capacity(cfg, 24) == 16
+    w = torch.randn((1, 24, cfg.d_model), generator=g)
+    experts = [p[k].requires_grad_() for k in ("w_gate", "w_up", "w_down")]
+    xg = x.clone().requires_grad_()
+    y, _ = T_M.moe_ffn(cfg, p, xg)
+    gx, *gw = torch.autograd.grad((y * w).sum(), [xg] + experts)
+    assert not bool(y[0, 16:].any()) and not bool(gx[0, 16:].any())
+    assert bool(gx[0, :16].abs().sum(-1).gt(0).all())
+    kept, _ = T_M.moe_ffn(cfg, p, x[:, :16])
+    want = torch.autograd.grad((kept * w[:, :16]).sum(), experts)
+    for a, b in zip(gw, want):
+        torch.testing.assert_close(a, b, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("dtype, tol", [("float32", 1e-4),
+                                        ("bfloat16", 1e-2)])
+def test_moe_federation_matches_reference(dtype, tol):
+    """grok smoke in the LM fleet, 9 rounds, 4 workers, from the
+    reference's initial buffers: the control plane identical,
+    ``loss_global`` within tests/test_torch_lm.py's tolerances."""
+    jax = pytest.importorskip("jax")
+    from repro.core.protocol import DySTop as R_DySTop
+    from repro.dfl import lm_worker as R_LW
+    from repro.models import registry as R_R
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl import lm_worker as T_LW
+    kw = dict(n_workers=4, n_rounds=9, batch=2, seq=16, eval_every=3, seed=1)
+    r_cfg = dataclasses.replace(R_R.get_smoke_config("grok-1-314b"),
+                                dtype=dtype)
+    with jax.default_device(jax.devices("cpu")[0]):
+        init = R_LW.init_fleet(r_cfg, kw["n_workers"], seed=kw["seed"])
+        _, r_hist = R_LW.run_lm_federation(
+            R_DySTop(V=3.0, t_thre=10, max_neighbors=3), r_cfg,
+            R_LW.LMRunConfig(**kw))
+    cfg = dataclasses.replace(T_R.get_smoke_config("grok-1-314b"),
+                              dtype=dtype)
+    _, hist = T_LW.run_lm_federation(
+        DySTop(V=3.0, t_thre=10, max_neighbors=3), cfg,
+        T_LW.LMRunConfig(**kw), device="cpu",
+        init=(np.asarray(init.pbuf), np.asarray(init.obuf)))
+    for f in ("rounds", "sim_time", "comm_gb", "staleness_avg",
+              "staleness_max", "round_durations", "round_active"):
+        assert getattr(hist, f) == getattr(r_hist, f), f
+    assert max(hist.round_active) > 1
+    assert np.isfinite(hist.loss_global).all()
+    np.testing.assert_allclose(hist.loss_global, r_hist.loss_global,
+                               atol=tol, rtol=0)
 
 
 @pytest.mark.cuda
 def test_cuda_moe_router_matches_plain():
     """On the card: ids identical, gates within 1e-6, at the decode shape,
-    a ragged T, kimi's E = 384, and the tie rows."""
+    a ragged T, kimi's E = 384, the smoke fleet's E = 4, and the tie
+    rows."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card: the moe_router kernel has no CPU "
                     "mode (its plain version is tested above)")

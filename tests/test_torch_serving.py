@@ -22,6 +22,7 @@ from repro_torch.models import registry as T_R
 from repro_torch.serving import (GenerationConfig, ServeEngine,
                                  TrafficConfig, generate_requests)
 from repro_torch.serving.engine import request_generator, sample_token
+from test_torch_resume import _one_torch_thread  # noqa: F401
 
 BF16_TOL = 0.1
 ENGINE_ARCHS = ("smollm-135m", "gemma2-2b", "mamba2-2.7b", "grok-1-314b")

@@ -22,6 +22,7 @@ from repro.dfl import simulator as R_SIM  # noqa: E402
 from repro.dfl import worker as R_WK  # noqa: E402
 from repro_torch.core.protocol import DySTop as T_DySTop  # noqa: E402
 from repro_torch.dfl import simulator as T_SIM  # noqa: E402
+from test_torch_resume import _one_torch_thread  # noqa: E402,F401
 
 CFG = dict(n_workers=16, n_rounds=40, hidden=48, n_samples=6000, phi=0.5,
            lr=0.1)

@@ -31,6 +31,7 @@ from repro_torch.kernels import ssd_chunk as T_SC
 from repro_torch.models import registry as T_R
 from repro_torch.models import ssm as T_S
 from repro_torch.tree import tree_from_paths, tree_paths
+from test_torch_resume import _one_torch_thread  # noqa: F401
 
 ARCH = "mamba2-2.7b"
 B, S = 2, 64                 # two 32-step chunks of the smoke config
