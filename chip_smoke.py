@@ -3,10 +3,11 @@
 the LM fleet over four model families (dense: smollm-135m; ssm:
 mamba2-2.7b; hybrid: recurrentgemma-2b; moe: grok-1-314b's smoke
 geometry), serving (grok-1-314b, the moe family, at full width, and
-recurrentgemma-2b at full size), the fleet mesh (``mesh_shards`` = 2 and 4
-gloo ranks sharing the card) on the simulation plane and the LM fleet, the
-Table-I arena (DySTop against four baselines), Theorem 1's bound, and
-snapshots with resume on both planes.
+recurrentgemma-2b, paligemma-3b and seamless-m4t-medium at full size), the
+model plane of the vlm and encoder-decoder families at full width, the
+fleet mesh (``mesh_shards`` = 2 and 4 gloo ranks sharing the card) on the
+simulation plane and the LM fleet, the Table-I arena (DySTop against four
+baselines), Theorem 1's bound, and snapshots with resume on both planes.
 
     python3 chip_smoke.py            # from the repository root
 
@@ -243,14 +244,42 @@ Phases 26-29 run the hybrid family and train the moe family:
    finite), its forward (the kernel) and backward (the plain version)
    timed beside their bounds.
 
+Phases 30-35 run the vlm family (paligemma-3b, stub prefix embeddings) and
+the encoder-decoder family (seamless-m4t-medium, stub audio frames), each
+model freed before the next phase:
+
+30. serve paligemma-3b at full size, 18 layers, nothing cut, text only, as
+   phase 28 serves recurrentgemma (no kernel launches: decode is plain);
+31. ``compute_loss`` forward and backward once on paligemma-3b at full
+   width (drawn on the card): batch 2, 256 stub prefix embeddings in front
+   of 256 text tokens; loss and every gradient finite, and no kernel
+   launches (the prefix keeps attention on the plain prefix-LM mask, as
+   the JAX package keeps it off its Pallas kernel);
+32. paligemma's smoke geometry, card vs CPU from the same params and the
+   same injected prefix: loss within 2e-2;
+33. ``launch/serve.serve("seamless-m4t-medium")`` at full size (12 + 12
+   layers, nothing cut): batch 8, prompt 32, gen 32, max_len 512 (128 stub
+   frames drawn on the card), flash launching once per encoder layer
+   (``causal=False``) and nothing else; its ms per token;
+34. ``compute_loss`` forward and backward once on seamless-m4t-medium at
+   full width: batch 4, seq 512, 128 frames; loss and every gradient
+   finite, flash launching once per encoder and decoder layer; then flash
+   held on the inputs of its first call at each of the path's shapes
+   (the encoder's (8, 16, 128, 64) and (4, 16, 128, 64) non-causal, the
+   decoder's (4, 16, 512, 64) causal) against its plain version within 2
+   bf16 ulps, and timed beside its bound and
+   ``scaled_dot_product_attention``;
+35. seamless's smoke geometry, card vs CPU: loss within 2e-2, and
+   ``fill_cross_cache`` + ``E_prefill``'s logits within 0.25.
+
 Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
 ``{"mamba2": ...}``, ``{"serving": ...}``, ``{"mesh": ...}``, ``{"arena":
 ...}``, ``{"convergence": ...}``, ``{"sigkill_resume": ...}``,
 ``{"lm_snapshot": ...}``, ``{"hybrid": ...}``, ``{"moe_train": ...}``,
-``{"kernels": [...]}`` (the three mesh twins as row 3, then phases 26 and
-29's shapes), ``{"script": ...}`` and ``{"sim": {...}}`` lines, the card's
-name and power limit and, as the last line, ``{"ok": true, "device":
-{...}}``.
+``{"vlm": ...}``, ``{"encdec": ...}``, ``{"kernels": [...]}`` (the three
+mesh twins as row 3, then phases 26, 29, 33 and 34's shapes),
+``{"script": ...}`` and ``{"sim": {...}}`` lines, the card's name and power
+limit and, as the last line, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
@@ -1896,19 +1925,18 @@ def scan_chunk_rows(gen, dev, s: int, d: int) -> list:
     return rows
 
 
-def hybrid_serve_phase(dev) -> dict:
-    """Phase 28: serve recurrentgemma-2b at full size (26 layers, nothing
-    cut) as phase 16 serves grok: every request finishes with its tokens,
-    every tick's logits finite, and no kernel launches (decode reads its
-    caches through plain attention and the RG-LRU step, as the JAX package
-    does)."""
+def full_serve_phase(cfg, label: str) -> dict:
+    """Phases 28 and 30: serve ``cfg`` at full size (nothing cut) as phase
+    16 serves grok: every request finishes with its tokens, every tick's
+    logits finite, and no kernel launches (decode reads its caches through
+    plain attention and, for recurrentgemma, the RG-LRU step, as the JAX
+    package does)."""
     import torch
-    from repro_torch.configs import recurrentgemma_2b
     from repro_torch.models import registry as R
     from repro_torch.serving import (ARRIVAL_PRESETS, ServeEngine, drive,
                                      generate_requests)
     from repro_torch.tree import tree_leaves
-    cfg = recurrentgemma_2b.get_config()
+    dev = torch.device("cuda")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
@@ -1939,16 +1967,16 @@ def hybrid_serve_phase(dev) -> dict:
     launches = read_counters()
     peak = torch.cuda.max_memory_allocated()
     check(rep.n_finished == len(reqs) == 24,
-          f"recurrentgemma served {rep.n_finished} of {len(reqs)} requests")
+          f"{label} served {rep.n_finished} of {len(reqs)} requests")
     for rid, r in enumerate(reqs):
         check(len(rep.outputs[rid]) == r.gen.max_new_tokens,
-              f"recurrentgemma request {rid}: {len(rep.outputs[rid])} "
+              f"{label} request {rid}: {len(rep.outputs[rid])} "
               f"tokens of {r.gen.max_new_tokens}")
-    check(bool(torch.stack(finite).all()), "recurrentgemma logits not finite")
+    check(bool(torch.stack(finite).all()), f"{label} logits not finite")
     check(not any(launches.values()),
           f"a kernel launched on the decode path: {launches}")
     tick_ms = sum(step_s) / eng.t * 1e3
-    print(f"recurrentgemma serving (26 layers, {n_params} params): "
+    print(f"{label} serving ({cfg.n_layers} layers, {n_params} params): "
           f"{rep.n_finished} requests, {rep.total_tokens} tokens in "
           f"{rep.makespan_s:.2f} s ({rep.tokens_per_sec:.1f} tok/s), "
           f"{eng.t} ticks at {tick_ms:.2f} ms, init {init_wall:.2f} s, peak "
@@ -1978,9 +2006,14 @@ def hybrid_serve_phase(dev) -> dict:
           "the profiled drive served other tokens")
     busy, top, extra = profile_rows(prof)
     prof_wall = window[1] - window[0]
-    out = {"config": "recurrentgemma-2b get_config() (26 layers, nothing "
-                     "cut), ServeEngine(batch_slots=8, max_len=512, seed=0), "
-                     "ARRIVAL_PRESETS['steady'] on the wall clock",
+    print(f"{label} serving: TTFT p50 {rep.ttft_s['p50']:.3f} s, p99 "
+          f"{rep.ttft_s['p99']:.3f} s; profiled ticks {list(edges)}: "
+          f"{prof_wall:.2f} s, device busy "
+          f"{'not measured' if busy is None else f'{busy / prof_wall:.1%}'}, "
+          f"{extra['device_kernels']} device kernels", flush=True)
+    out = {"config": f"{cfg.arch_id} get_config() ({cfg.n_layers} layers, "
+                     f"nothing cut), ServeEngine(batch_slots=8, max_len=512, "
+                     f"seed=0), ARRIVAL_PRESETS['steady'] on the wall clock",
            "params": n_params, "init_wall_s": init_wall,
            "max_memory_allocated_bytes": peak, "drive_wall_s": drive_wall,
            "ticks": eng.t, "ms_per_tick": tick_ms,
@@ -2201,6 +2234,240 @@ def moe_train_phase(gen, dev, mech) -> tuple:
                                       "backward_bound_by")},
            "kimi": rows[1], "smoke_path": rows[2]}
     return record, row
+
+
+# ---- phases 30-35: the vlm family and the encoder-decoder family ----------
+
+# phase 31: paligemma-3b's loss at full width, 256 stub prefix embeddings
+# (the config's n_prefix_tokens) in front of 256 text tokens
+VLM_LOSS = dict(batch=2, text=256)
+# phase 33: launch/serve.py on seamless-m4t-medium (max_len 512: 128 frames)
+ENCDEC_SERVE = dict(batch=8, prompt_len=32, gen=32, max_len=512)
+# phase 34: seamless-m4t-medium's loss at full width (frames_for(512) = 128)
+ENCDEC_LOSS = dict(batch=4, seq=512)
+
+
+def flash_keeper(kept: dict, calls: Counter, fa):
+    """A wrapper around ``flash_attention`` that counts the calls of each
+    (shape, kv heads, dtype, mask) key and keeps a copy of the inputs of
+    each key's first call (the kernel's own counter stays the only proof
+    of launches)."""
+    def rec_fa(q, k, v, causal=True, window=None, softcap=None):
+        key = ("flash_attention", tuple(q.shape), k.shape[1], str(q.dtype),
+               causal, window, softcap)
+        calls[key] += 1
+        if key not in kept:
+            kept[key] = tuple(t.detach().clone() for t in (q, k, v))
+        return fa(q, k, v, causal, window, softcap)
+    return rec_fa
+
+
+def stub_batch(cfg, batch: int, seq: int, dev, seed: int = 0) -> dict:
+    """Tokens, labels and the family's stub feed (prefix embeddings for
+    the vlm family, ``frames_for(seq)`` frames for enc-dec), drawn on the
+    CPU from ``seed`` in the activation dtype and moved to ``dev``."""
+    import torch
+    from repro_torch.models import registry as R
+    g = torch.Generator().manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=g),
+           "labels": torch.randint(0, cfg.vocab_size, (batch, seq),
+                                   generator=g),
+           "loss_mask": torch.ones((batch, seq))}
+    dt = getattr(torch, cfg.dtype)
+    if R.has_prefix(cfg):
+        out["prefix_embeds"] = torch.randn(
+            (batch, cfg.n_prefix_tokens, cfg.d_model), generator=g).to(dt)
+    if R.is_encdec(cfg):
+        out["frames"] = torch.randn(
+            (batch, R.frames_for(cfg, seq), cfg.d_model), generator=g).to(dt)
+    return {k: v.to(dev) for k, v in out.items()}
+
+
+def full_loss_phase(cfg, label: str, batch: int, seq: int, dev,
+                    kept: dict, calls: Counter) -> dict:
+    """Phases 31 and 34: ``compute_loss`` forward and backward once on the
+    card at full width (params drawn on the card), loss and every gradient
+    finite; flash's inputs kept per shape (``flash_keeper``)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.models import registry as R
+    from repro_torch.tree import tree_leaves
+    torch.cuda.empty_cache()
+    params = R.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    leaves = [t.requires_grad_() for t in tree_leaves(params)]
+    data = stub_batch(cfg, batch, seq, dev)
+    orig = FA.flash_attention
+    FA.flash_attention = flash_keeper(kept, calls, orig)
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        loss, _ = R.compute_loss(cfg, params, data)
+        grads = torch.autograd.grad(loss, leaves)
+        torch.cuda.synchronize()
+    finally:
+        FA.flash_attention = orig
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    check(bool(torch.isfinite(loss)), f"{label} loss not finite: {loss}")
+    check(all(bool(torch.isfinite(g).all()) for g in grads),
+          f"{label}: a gradient is not finite")
+    n_params = sum(t.numel() for t in leaves)
+    feed = {k: list(v.shape) for k, v in data.items()}
+    print(f"{label} compute_loss forward + backward at full width "
+          f"({n_params} params, {feed}): loss {float(loss.detach()):.4f}, "
+          f"{wall:.2f} s, launches {launches}, peak {peak / 1e9:.2f} GB",
+          flush=True)
+    out = {"config": f"{cfg.arch_id} get_config() (nothing cut), batch "
+                     f"{batch}, seq {seq}", "params": n_params,
+           "inputs": feed, "loss": float(loss.detach()), "wall_s": wall,
+           "launches": launches, "max_memory_allocated_bytes": peak}
+    del params, leaves, grads, loss, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def family_card_vs_cpu(cfg, label: str, seq: int) -> dict:
+    """The smoke geometry's loss on the card and on the CPU from the same
+    params and the same injected stub feed: within ``LM_CARD_CPU_TOL``;
+    for enc-dec also ``fill_cross_cache`` + ``E_prefill``'s logits over a
+    16-token prompt within ``SERVE_CARD_CPU_TOL``."""
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import serve as SERVE
+    from repro_torch.models import encdec as E
+    from repro_torch.models import registry as R
+    from repro_torch.tree import tree_map
+    params = R.init_params(cfg, torch.Generator().manual_seed(0))
+    card = tree_map(lambda t: t.to("cuda"), params)
+    data = stub_batch(cfg, 2, seq, "cpu", seed=3)
+    with torch.no_grad():
+        cpu_loss = float(R.compute_loss(cfg, params, data)[0])
+        card_loss = float(R.compute_loss(cfg, card, {
+            k: v.to("cuda") for k, v in data.items()})[0])
+    gap = abs(card_loss - cpu_loss)
+    check(gap <= LM_CARD_CPU_TOL, f"{label} card and CPU losses differ by "
+          f"{gap} ({card_loss} against {cpu_loss})")
+    out = {"config": f"{cfg.arch_id} (smoke), batch 2, seq {seq}",
+           "card_loss": card_loss, "cpu_loss": cpu_loss, "loss_gap": gap}
+    if R.is_encdec(cfg):
+        prompt = data["tokens"][:, :16]
+        logits = {}
+        for dev, p in (("cuda", card), ("cpu", params)):
+            cache = R.init_decode_cache(cfg, ShapeSpec("d", 64, 2, "decode"),
+                                        dev)
+            frames = stub_batch(cfg, 2, 64, dev, seed=4)["frames"]
+            with torch.no_grad():
+                cache = E.fill_cross_cache(cfg, p, cache, frames)
+                logits[dev] = SERVE.E_prefill(cfg, p, cache,
+                                              prompt.to(dev))[0].float().cpu()
+        v = cfg.vocab_size
+        err = float((logits["cuda"][..., :v] - logits["cpu"][..., :v]).abs()
+                    .max())
+        check(err <= SERVE_CARD_CPU_TOL, f"{label} E_prefill logits, card "
+              f"vs CPU, differ by {err}")
+        out["prefill_logits_max_abs_err"] = err
+    print(f"{label} card vs CPU (smoke): {out}", flush=True)
+    return out
+
+
+def flash_path_row(key, ins, calls: int, label: str) -> dict:
+    """Hold flash on the inputs of a path's first call at ``key`` against
+    its plain version (2 bf16 ulps) and time it beside the plain version,
+    its bound and ``scaled_dot_product_attention`` (kv heads repeated)."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    q, k, v = ins
+    _, shape, hk, _, causal, window, softcap = key
+    check(window is None and softcap is None, f"flash {label}: {key}")
+    got = FA.flash_attention(q, k, v, causal)
+    want = FA.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(got.float(), want.float())
+    check(bool(torch.isfinite(got).all()) and ulps <= 2.0,
+          f"flash {label} on the path's own inputs: {ulps} bf16 ulps")
+    b_ms, b_by = flash_cost(q, k, causal, window)
+    h = shape[1]
+    k_rep = k.repeat_interleave(h // hk, dim=1)
+    v_rep = v.repeat_interleave(h // hk, dim=1)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k_rep, v_rep, is_causal=causal)
+    row = {"label": label, "shape": list(shape), "kv_heads": hk,
+           "dtype": str(q.dtype), "causal": causal, "window": window,
+           "softcap": softcap, "calls": calls, "max_bf16_ulps": ulps,
+           "max_abs_err": float((got.float() - want.float()).abs().max()),
+           "q_strides": list(q.stride()),
+           "ms": device_ms(lambda: FA.flash_attention(q, k, v, causal), 20),
+           "plain_ms": device_ms(lambda: FA.flash_attention_plain(
+               q, k, v, causal), 5),
+           "bound_ms": b_ms, "bound_by": b_by,
+           "library": "scaled_dot_product_attention",
+           "library_ms": device_ms(sdpa, 20),
+           "library_bf16_ulps": bf16_ulps(sdpa().float(), want.float())}
+    print(f"flash {label}: {row}", flush=True)
+    return row
+
+
+def encdec_serve_phase(kept: dict, calls: Counter) -> dict:
+    """Phase 33: ``launch/serve.serve`` on seamless-m4t-medium at full size
+    (nothing cut): stub frames drawn on the card, the encoder once (flash
+    with ``causal=False``, once per encoder layer and nowhere else), the
+    cross caches, ``E_prefill`` and greedy decoding (plain, as in the JAX
+    package)."""
+    import contextlib
+    import io
+    import re
+    import torch
+    from repro_torch.configs import seamless_m4t_medium
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import serve as SERVE
+    cfg = seamless_m4t_medium.get_config()
+    torch.cuda.empty_cache()
+    orig = FA.flash_attention
+    FA.flash_attention = flash_keeper(kept, calls, orig)
+    zero_counters()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    try:
+        with contextlib.redirect_stdout(buf):
+            seqs = SERVE.serve(cfg.arch_id, False, ENCDEC_SERVE["batch"],
+                               ENCDEC_SERVE["prompt_len"],
+                               ENCDEC_SERVE["gen"],
+                               max_len=ENCDEC_SERVE["max_len"],
+                               device="cuda")
+    finally:
+        FA.flash_attention = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    text = buf.getvalue()
+    print(text, end="", flush=True)
+    check(launches["flash_attention"] == cfg.n_enc_layers
+          and all(n == 0 for name, n in launches.items()
+                  if name != "flash_attention"),
+          f"seamless serving: launches {launches}, expected flash once per "
+          f"encoder layer ({cfg.n_enc_layers}) and nothing else")
+    check(tuple(seqs.shape) == (ENCDEC_SERVE["batch"],
+                                ENCDEC_SERVE["gen"] + 1)
+          and bool(((seqs >= 0) & (seqs < cfg.vocab_size)).all()),
+          f"seamless serving returned {tuple(seqs.shape)} sequences")
+    m = re.search(r"arch=seamless-m4t-medium batch=(\d+) device=cuda "
+                  r"([0-9.]+) ms/token", text)
+    check(m is not None, f"seamless serving printed no arch= line: {text!r}")
+    out = {"config": "launch/serve.serve('seamless-m4t-medium', smoke=False, "
+                     + ", ".join(f"{k}={v}" for k, v in ENCDEC_SERVE.items())
+                     + ", device='cuda'), 12 + 12 layers, nothing cut",
+           "ms_per_token": float(m.group(2)), "wall_s": wall,
+           "launches": launches, "max_memory_allocated_bytes": peak}
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -3014,13 +3281,73 @@ def main() -> int:
         lm_mech, recurrentgemma_2b.get_smoke_config(), "hybrid", seq=128)
 
     # ---- 28. serving recurrentgemma-2b at full size ------------------------
-    hybrid["serving"] = hybrid_serve_phase(dev)
+    hybrid["serving"] = full_serve_phase(recurrentgemma_2b.get_config(),
+                                         "recurrentgemma")
     hybrid["serving"]["card_vs_cpu"] = serve_gaps["recurrentgemma"]
 
     # ---- 29. training the moe family ---------------------------------------
     moe_train, moe_row = moe_train_phase(gen, dev, lm_mech)
     new_phases_s = time.perf_counter() - t_new
     print(f"phases 26-29: {new_phases_s:.1f} s", flush=True)
+
+    # ---- 30. serving paligemma-3b at full size (text only) -----------------
+    t_stub = time.perf_counter()
+    from repro_torch.configs import paligemma_3b, seamless_m4t_medium
+    vlm = {"serving": full_serve_phase(paligemma_3b.get_config(),
+                                       "paligemma")}
+
+    # ---- 31. paligemma-3b's loss at full width, 256 stub prefix tokens -----
+    vlm_kept, vlm_calls = {}, Counter()
+    vlm["loss"] = full_loss_phase(paligemma_3b.get_config(), "paligemma",
+                                  VLM_LOSS["batch"], VLM_LOSS["text"], dev,
+                                  vlm_kept, vlm_calls)
+    # the prefix keeps attention off flash, as it keeps the JAX package's
+    # off its Pallas kernel
+    check(not any(vlm["loss"]["launches"].values()) and not vlm_kept,
+          f"a kernel launched on the prefix-LM's path: "
+          f"{vlm['loss']['launches']}")
+
+    # ---- 32. the vlm smoke geometry, card vs CPU ---------------------------
+    vlm["card_vs_cpu"] = family_card_vs_cpu(
+        paligemma_3b.get_smoke_config(), "paligemma", seq=48)
+
+    # ---- 33. serving seamless-m4t-medium at full size ----------------------
+    ed_kept, ed_calls = {}, Counter()
+    encdec = {"serving": encdec_serve_phase(ed_kept, ed_calls)}
+
+    # ---- 34. seamless-m4t-medium's loss at full width ----------------------
+    sm_cfg = seamless_m4t_medium.get_config()
+    encdec["loss"] = full_loss_phase(sm_cfg, "seamless",
+                                     ENCDEC_LOSS["batch"], ENCDEC_LOSS["seq"],
+                                     dev, ed_kept, ed_calls)
+    check(encdec["loss"]["launches"]["flash_attention"]
+          == sm_cfg.n_enc_layers + sm_cfg.n_layers
+          and encdec["loss"]["launches"]["flash_attention"]
+          == sum(encdec["loss"]["launches"].values()),
+          f"seamless loss: launches {encdec['loss']['launches']}, expected "
+          f"flash once per encoder and decoder layer and nothing else")
+    ed_rows = {key: flash_path_row(
+        key, ins, ed_calls[key],
+        ("encoder (non-causal)" if not key[4] else "decoder (causal)")
+        + f" {list(key[1])}") for key, ins in ed_kept.items()}
+    check({(k[1], k[4]) for k in ed_rows} == {
+        ((ENCDEC_SERVE["batch"], 16, 128, 64), False),
+        ((ENCDEC_LOSS["batch"], 16, 128, 64), False),
+        ((ENCDEC_LOSS["batch"], 16, ENCDEC_LOSS["seq"], 64), True)},
+        f"seamless flash shapes: {sorted(k[1:] for k in ed_rows)}")
+    encdec["flash"] = list(ed_rows.values())
+    del ed_kept, vlm_kept
+    torch.cuda.empty_cache()
+
+    # ---- 35. the enc-dec smoke geometry, card vs CPU -----------------------
+    encdec["card_vs_cpu"] = family_card_vs_cpu(
+        seamless_m4t_medium.get_smoke_config(), "seamless", seq=64)
+    stub_phases_s = time.perf_counter() - t_stub
+    print(f"phases 30-35: {stub_phases_s:.1f} s", flush=True)
+    flash_ulps = max([flash_ulps] + [r["max_bf16_ulps"]
+                                     for r in ed_rows.values()])
+    flash_err = max([flash_err] + [r["max_abs_err"]
+                                   for r in ed_rows.values()])
 
     top_agg, top_sgd = agg_rows[0], sgd_rows[0]
     kernels = [
@@ -3111,6 +3438,20 @@ def main() -> int:
                                    "plain_ms", "bound_ms", "bound_by",
                                    "library_ms")}},
         moe_row]
+    for key, row in ed_rows.items():
+        if key[1][0] == ENCDEC_LOSS["batch"] and not key[4]:
+            continue               # the loss's encoder call: in "encdec"
+        kernels.append({
+            "name": "flash_attention",
+            "path": ("seamless serving, encoder (phase 33)" if not key[4]
+                     else "seamless loss, decoder (phase 34)"),
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:102",
+            "launches": row["calls"], **{k: row[k] for k in (
+                "max_abs_err", "max_bf16_ulps", "shape", "kv_heads",
+                "causal", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library", "library_bf16_ulps")}})
     print(json.dumps({"mesh": {
         "backend": "gloo", "device": "cuda:0 shared by every rank",
         "sim_config": "SimConfig() defaults with mesh_shards=S, "
@@ -3196,9 +3537,12 @@ def main() -> int:
     print(json.dumps({"lm_snapshot": lm_snap}))
     print(json.dumps({"hybrid": hybrid}))
     print(json.dumps({"moe_train": moe_train}))
+    print(json.dumps({"vlm": vlm}))
+    print(json.dumps({"encdec": encdec}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"script": {"wall_s": time.perf_counter() - t_script,
-                                 "phases_26_29_wall_s": new_phases_s}}))
+                                 "phases_26_29_wall_s": new_phases_s,
+                                 "phases_30_35_wall_s": stub_phases_s}}))
     print(json.dumps({"sim": {
         "config": "SimConfig() defaults, DySTop(V=10.0, t_thre=20)",
         "rounds": hist.rounds[-1], "evals": len(hist.rounds),

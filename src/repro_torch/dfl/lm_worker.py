@@ -27,7 +27,10 @@ mesh of that many processes (``launch.mesh``,
 snapshots of the whole fleet (``checkpoint.io``, the JAX package's layout)
 that ``resume_from`` continues exactly and ``serving.bridge`` serves.  The
 JAX package's per-call-flatten oracle is not ported: its setting raises
-``NotImplementedError`` naming its ROADMAP item.
+``NotImplementedError`` naming its ROADMAP item.  The vlm and enc-dec
+families are refused at set-up (``check_trainable``): their row-step would
+need stub prefix embeddings or frames that the JAX package's fleet does not
+feed either.
 """
 from __future__ import annotations
 
@@ -529,6 +532,23 @@ class LMHistory:
         return dataclasses.asdict(self)
 
 
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raise ``ValueError`` for a family whose row-step would need a feed
+    the fleet's token streams do not carry: the vlm family's stub prefix
+    embeddings, the enc-dec family's stub audio frames.  The JAX package's
+    row-step builds only tokens, labels and the loss mask, and fails on
+    both families with ``KeyError`` at its first row-step."""
+    feed = ("prefix_embeds" if R.has_prefix(cfg)
+            else "frames" if R.is_encdec(cfg) else None)
+    if feed is not None:
+        raise ValueError(
+            f"run_lm_federation: {cfg.arch_id} ({cfg.family} family) needs "
+            f"batch[{feed!r}], which the fleet's row-step does not feed "
+            f"(it builds tokens, labels and loss_mask, as the JAX package's "
+            f"does); train it through models.registry.compute_loss with "
+            f"your own {feed}")
+
+
 def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
                       resume_from: Optional[str] = None, *,
                       device: Optional[str] = None,
@@ -570,6 +590,7 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     two moments) through the host and holds the whole fleet on rank 0's
     device beside its optimizer-state block.
     """
+    check_trainable(cfg)
     dev = resolve_device(device if device is not None else run.device,
                          "run_lm_federation")
     if run.mesh_shards > 1 and not MESH.in_group():

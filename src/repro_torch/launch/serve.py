@@ -9,7 +9,11 @@ JAX package's ``run_lm_federation`` instead of a fresh init — the Eq. 11
 weighted global model by default, or one worker's own model with
 ``--worker i``.  The batch shares one position clock and, in MoE layers,
 one capacity group, as in the JAX package (``ServeEngine`` gives each row
-its own).  The default device is the card.
+its own).  An encoder-decoder arch (seamless-m4t-medium) encodes stub
+audio frames drawn from a ``torch.Generator`` on the device (the JAX
+package draws them with ``jax.random``), fills the cross caches
+(``encdec.fill_cross_cache``) and decodes the prompt step by step
+(``E_prefill``).  The default device is the card.
 """
 from __future__ import annotations
 
@@ -20,9 +24,10 @@ import torch
 
 from repro_torch.configs.base import ShapeSpec
 from repro_torch.data.synthetic import make_token_stream
+from repro_torch.device import resolve_device
+from repro_torch.models import encdec as E
 from repro_torch.models import registry as R
 from repro_torch.models import transformer as T
-from repro_torch.device import resolve_device
 
 
 @torch.no_grad()
@@ -42,15 +47,21 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
         print(f"loaded serving params from {src}")
     else:
         params = R.init_params(cfg, torch.Generator(dev).manual_seed(0))
-    if R.is_encdec(cfg):
-        E_prefill(cfg, params, None, None)
     cache = R.init_decode_cache(cfg, ShapeSpec("serve", max_len, batch,
                                                "decode"), dev)
 
     stream = make_token_stream(cfg.vocab_size, batch * prompt_len + 1)
     prompt = torch.from_numpy(
         stream[:batch * prompt_len].reshape(batch, prompt_len)).to(dev)
-    _, cache = T.prefill_cache(cfg, params, cache, prompt)
+    if R.is_encdec(cfg):
+        frames = torch.randn(
+            (batch, R.frames_for(cfg, max_len), cfg.d_model),
+            generator=torch.Generator(dev).manual_seed(0), device=dev,
+            dtype=torch.float32).to(getattr(torch, cfg.dtype))
+        cache = E.fill_cross_cache(cfg, params, cache, frames)
+        _, cache = E_prefill(cfg, params, cache, prompt)
+    else:
+        _, cache = T.prefill_cache(cfg, params, cache, prompt)
 
     tok = prompt[:, -1:]
     out = [tok]
@@ -70,10 +81,13 @@ def serve(arch: str, smoke: bool, batch: int, prompt_len: int, gen: int,
 
 
 def E_prefill(cfg, params, cache, prompt):
-    raise NotImplementedError(
-        f"{cfg.arch_id}: encoder-decoder prefill (E_prefill, cross caches) "
-        f"is not ported to PyTorch yet — ROADMAP Queue A item 6 (the "
-        f"encdec/audio family)")
+    """Decode the prompt tokens (B, S0) into an enc-dec cache one step at a
+    time (its cross caches filled) -> (logits (B, S0, V_pad), cache)."""
+    logits = []
+    for i in range(prompt.shape[1]):
+        step, cache = E.decode_step(cfg, params, cache, prompt[:, i:i + 1])
+        logits.append(step[:, 0])
+    return torch.stack(logits, dim=1), cache
 
 
 def main():

@@ -10,12 +10,13 @@ Conventions, as in the JAX package:
     statistics in f32, logits in f32;
   * shapes: tokens (B, S); hidden (B, S, D); attention heads (B, S, H, hd).
 
-Attention on the self-attention train/prefill branch always goes through
+Attention on the self-attention train/prefill branch goes through
 ``kernels.ops.flash_attention_diff`` (the CUDA kernel on the card, its plain
-version on the CPU); a decode step against a cache is einsums, as in the
-JAX package (no kernel there either).  Cross-attention and a bidirectional
-prefix are not ported and raise.  The sharding hints of the JAX package
-(``constrain``) are the identity on one card and are not ported.
+version on the CPU), causal or not (the enc-dec encoder's).  A decode step
+against a cache, cross-attention and a bidirectional prefix (the prefix-LM)
+are einsums, as in the JAX package, which keeps all three off its Pallas
+path too.  The sharding hints of the JAX package (``constrain``) are the
+identity on one card and are not ported.
 """
 from __future__ import annotations
 
@@ -201,19 +202,23 @@ def attn_mask(q_pos: torch.Tensor, k_pos: torch.Tensor,
 
 
 def cached_attention(cfg: ModelConfig, wo: torch.Tensor, q: torch.Tensor,
-                     k: torch.Tensor, v: torch.Tensor, mask: torch.Tensor,
+                     k: torch.Tensor, v: torch.Tensor,
+                     mask: Optional[torch.Tensor],
                      softcap: Optional[float]) -> torch.Tensor:
-    """Queries (B, Sq, H, hd) against a cache's keys and values (B, W, Hk,
-    hd), then the out-projection: the JAX package's einsum path.  Scores
+    """Queries (B, Sq, H, hd) against keys and values (B, W, Hk, hd) (a
+    cache's, the encoder's or the sequence's own), then the out-projection:
+    the JAX package's einsum path.  Scores
     come out of the product in the cache's dtype, then f32 and scaled;
     softcap, then the -1e30 mask; the probabilities are cast to v's dtype
-    before the product with v.  ``mask`` broadcasts to (B, Hk, Sq, G, W)."""
+    before the product with v.  ``mask`` broadcasts to (B, Hk, Sq, G, W);
+    None attends everywhere (cross-attention)."""
     b, sq, _, hd = q.shape
     qg = q.reshape(b, sq, cfg.n_kv_heads, cfg.q_per_kv, hd)
     scores = torch.einsum("bsngk,btnk->bnsgt", qg, k).float() * hd ** -0.5
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
-    scores = torch.where(mask, scores, -1e30)
+    if mask is not None:
+        scores = torch.where(mask, scores, -1e30)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.einsum("bnsgt,btnk->bsngk", probs, v)
     return out.reshape(b, sq, cfg.n_heads * hd) @ wo.reshape(-1,
@@ -226,20 +231,25 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         cache: Optional[Params] = None,
                         cache_pos=None
                         ) -> Tuple[torch.Tensor, Optional[Params]]:
-    """GQA self-attention -> (y, new cache).  Query head h = kv_idx * G + g
+    """GQA attention -> (y, new cache).  Query head h = kv_idx * G + g
     reads kv head h // G, the order of the JAX package's grouped reshape.
 
     Without a cache it runs over the full sequence (train/prefill) through
-    the flash kernel and returns no cache.  With ``cache`` {k, v (B, W, Hk,
+    the flash kernel and returns no cache; with ``spec.prefix_len`` (the
+    prefix-LM's bidirectional prefix) through plain attention on the
+    (Sq, Sk) mask of ``attn_mask``.  With ``kv_x`` (B, Sk, D) it is
+    cross-attention: q from x, k and v from ``kv_x``, no rope on either
+    side and no mask, plain attention.  With ``cache`` {k, v (B, W, Hk,
     hd)} it is one step of x (B, Sq, D) at ``cache_pos``: the new keys and
     values are written into the cache's tensors in place at rows
     ``cache_pos`` onward (clamped to fit, as ``dynamic_update_slice``
     clamps), and attention spans the cache with rows past the step masked."""
-    if kv_x is not None:
-        raise NotImplementedError(
-            "multihead_attention: cross-attention is not ported to PyTorch "
-            "yet — ROADMAP Queue A item 6 (the encdec/audio family)")
     b, s, _ = x.shape
+    if kv_x is not None:
+        return cached_attention(cfg, p["wo"], _project(x, p["wq"]),
+                                _project(kv_x, p["wk"]),
+                                _project(kv_x, p["wv"]), None,
+                                spec.softcap), None
     q = apply_rope(_project(x, p["wq"]), positions, cfg.rope_theta)
     k = apply_rope(_project(x, p["wk"]), positions, cfg.rope_theta)
     v = _project(x, p["wv"])
@@ -255,9 +265,11 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                              mask[:, None, :, None, :], spec.softcap)
         return y, {"k": cache["k"], "v": cache["v"]}
     if spec.prefix_len:
-        raise NotImplementedError(
-            "multihead_attention: a bidirectional prefix is not ported to "
-            "PyTorch yet — ROADMAP Queue A item 6 (the vlm family)")
+        # batch-free (Sq, Sk) mask, as the JAX package builds it
+        iota = torch.arange(s, dtype=torch.int32, device=x.device)
+        mask = attn_mask(iota, iota, spec)[None, None, :, None, :]
+        return cached_attention(cfg, p["wo"], q, k, v, mask,
+                                spec.softcap), None
     # (B, S, H, hd) -> (B, H, S, hd) views; the kernel writes its output in
     # q's (B, S, H, hd) layout, so the swap back is free
     out = K.flash_attention_diff(q.transpose(1, 2), k.transpose(1, 2),

@@ -1,5 +1,6 @@
-"""The decoder of the dense, moe, ssm and hybrid families (the port of
-``repro.models.transformer``).
+"""The decoder of the dense, moe, ssm, hybrid and vlm families (the port of
+``repro.models.transformer``; the encoder-decoder family, in
+``models/encdec.py``, reuses its layers).
 
 Layer stacking keeps the JAX package's param layout: ``prelude`` (explicit
 leading layers, e.g. kimi-k2's first dense layer), ``blocks`` (the repeating
@@ -7,9 +8,10 @@ pattern period, each leaf stacked on a leading group axis) and ``coda`` (the
 remainder, e.g. recurrentgemma's 26 = 8 * 3 + 2 layers).  The JAX package
 drives ``blocks`` with ``lax.scan``; here a Python loop indexes the group
 axis.  The layout is what makes the flat column order match the
-reference's.  The ``dense``, ``moe``, ``ssm`` and ``hybrid`` (RG-LRU and
-local attention, ``models/rglru.py``) families are ported; the other
-families raise ``NotImplementedError`` naming their ROADMAP item.
+reference's.  The ``hybrid`` family's RG-LRU blocks are in
+``models/rglru.py``; the ``vlm`` family (a prefix-LM) puts stub prefix
+embeddings in front of the tokens, attended bidirectionally among
+themselves (``forward(prefix_embeds=)``).
 
 Decoding keeps the JAX package's cache layout (``init_cache``: ``pos``, then
 per layer a KV ring with absolute ``k_pos`` or a recurrent (SSM or RG-LRU)
@@ -35,22 +37,14 @@ from repro_torch.tree import tree_map, tree_paths
 
 Params = Dict[str, Any]
 
-_PORTED_FAMILIES = ("dense", "moe", "ssm", "hybrid")
-_UNPORTED_FAMILIES = {
-    "vlm": "ROADMAP Queue A item 6: the vlm family (paligemma)",
-    "encdec": "ROADMAP Queue A item 6: the encdec/audio family",
-    "audio": "ROADMAP Queue A item 6: the encdec/audio family",
-}
+FAMILIES = ("dense", "moe", "ssm", "hybrid", "vlm", "encdec", "audio")
 
 
 def check_family(arch_id: str, family: str) -> None:
-    """Raise unless ``family`` is one the port runs (dense, moe, ssm,
-    hybrid)."""
-    if family not in _PORTED_FAMILIES:
-        why = _UNPORTED_FAMILIES.get(family, "ROADMAP Queue A item 6")
-        raise NotImplementedError(
-            f"{arch_id}: the {family!r} family is not ported to PyTorch "
-            f"yet — {why}")
+    """Raise unless ``family`` is one of the JAX package's."""
+    if family not in FAMILIES:
+        raise ValueError(f"{arch_id}: unknown family {family!r}; one of "
+                         f"{FAMILIES}")
 
 
 # --------------------------------------------------------------------------- #
@@ -85,7 +79,9 @@ def structure(cfg: ModelConfig) -> Tuple[int, int, int]:
 
 
 def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str,
-               layer_idx: int) -> Params:
+               layer_idx: int, cross: bool = False) -> Params:
+    """One layer's params; ``cross`` adds the enc-dec decoder's
+    cross-attention (``xattn``) and its norm (``ln_x``)."""
     dev = L._device(gen)
     p: Params = {"ln1": L.init_rmsnorm(cfg, dev)}
     if kind in ("attn", "attn_local"):
@@ -94,6 +90,9 @@ def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str,
         p["rglru"] = RG.init_rglru(gen, cfg)
     elif kind == "ssm":
         p["ssm"] = S.init_ssm(gen, cfg)
+    if cross:
+        p["ln_x"] = L.init_rmsnorm(cfg, dev)
+        p["xattn"] = L.init_attention(gen, cfg)
     has_ffn = cfg.d_ff > 0
     if has_ffn:
         p["ln2"] = L.init_rmsnorm(cfg, dev)
@@ -108,11 +107,22 @@ def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str,
     return p
 
 
-def _attn_spec(cfg: ModelConfig, kind: str) -> L.AttnSpec:
+def _attn_spec(cfg: ModelConfig, kind: str,
+               prefix_len: int = 0) -> L.AttnSpec:
     return L.AttnSpec(
         causal=True,
         window=cfg.window_size if kind == "attn_local" else None,
-        softcap=cfg.attn_logit_softcap)
+        softcap=cfg.attn_logit_softcap, prefix_len=prefix_len)
+
+
+def residual_norm(cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor,
+                  scale: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(x + y rounded to x's dtype, the norm of the sum read in f32): XLA
+    fuses the add into the norm's f32 upcast in the JAX package's compiled
+    layer (bit for bit in bf16); the residual stream carries the rounded
+    sum."""
+    xs = x.float() + y.float()
+    return xs.to(x.dtype), L.rms_norm(xs, scale, cfg.norm_eps, x.dtype)
 
 
 def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, y: torch.Tensor,
@@ -120,17 +130,11 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, y: torch.Tensor,
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's second half after the mixer's output y: residual, norm,
     MLP or MoE, post-norm, residual.  Returns (x, the MoE aux term, or None
-    for a layer without MoE).
-
-    The norm reads the residual sum x + y in f32, before it is rounded to
-    the activation dtype: XLA fuses the add into the norm's f32 upcast in
-    the JAX package's compiled layer (bit for bit in bf16); the residual
-    stream itself carries the rounded sum."""
+    for a layer without MoE).  The norm reads the residual sum in f32
+    (``residual_norm``)."""
     if "mlp" not in p and "moe" not in p:
         return x + y, None
-    xs = x.float() + y.float()
-    x = xs.to(x.dtype)
-    h = L.rms_norm(xs, p["ln2"], cfg.norm_eps, x.dtype)
+    x, h = residual_norm(cfg, x, y, p["ln2"])
     aux = None
     if "moe" in p:
         y, aux = M.moe_ffn(cfg, p["moe"], h, per_row=per_row)
@@ -142,9 +146,11 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, y: torch.Tensor,
 
 
 def apply_layer(cfg: ModelConfig, p: Params, kind: str, x: torch.Tensor,
-                positions: torch.Tensor
+                positions: torch.Tensor, prefix_len: int = 0
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """Full-sequence (train/prefill) layer.  Returns (x, moe_aux or None)."""
+    """Full-sequence (train/prefill) layer; its first ``prefix_len``
+    positions attend to each other both ways.  Returns (x, moe_aux or
+    None)."""
     h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
     if kind == "ssm":
         y = S.ssm_forward(cfg, p["ssm"], h)
@@ -152,7 +158,8 @@ def apply_layer(cfg: ModelConfig, p: Params, kind: str, x: torch.Tensor,
         y = RG.rglru_forward(cfg, p["rglru"], h)
     else:
         y, _ = L.multihead_attention(cfg, p["attn"], h,
-                                     _attn_spec(cfg, kind), positions)
+                                     _attn_spec(cfg, kind, prefix_len),
+                                     positions)
     if cfg.post_norm:
         y = L.rms_norm(y, p["ln1_post"], cfg.norm_eps)
     return _ffn(cfg, p, x, y)
@@ -223,35 +230,39 @@ def _layer_cache(cfg: ModelConfig, kind: str, batch: int, max_len: int,
 # --------------------------------------------------------------------------- #
 
 
+def init_stacked(init_one, n: int) -> Optional[Params]:
+    """``n`` draws of ``init_one()`` stacked on a leading axis (None for
+    none).  Each stacked leaf is allocated once and every draw, in order,
+    is copied into its slice: the peak holds the stack and one draw, not
+    two stacks."""
+    if n == 0:
+        return None
+    one = init_one()
+    stack = tree_map(lambda leaf: leaf.new_empty((n,) + tuple(leaf.shape)),
+                     one)
+    dsts = [leaf for _, leaf in tree_paths(stack)]
+    for i in range(n):
+        if one is None:
+            one = init_one()
+        for dst, (_, src) in zip(dsts, tree_paths(one)):
+            dst[i].copy_(src)
+        one = None                       # freed before the next draw
+    return stack
+
+
 def init_decoder(gen: Optional[torch.Generator], cfg: ModelConfig
                  ) -> Params:
     """One replica's params, drawn from ``gen`` on its device (``None``:
-    on the ``meta`` device).  Each stacked ``blocks`` leaf is allocated
-    once and every group is drawn, in group order, then copied into its
-    slice: the peak holds the stack and one group, not two stacks."""
+    on the ``meta`` device); ``blocks`` drawn group by group
+    (``init_stacked``)."""
     n_pre, n_grp, n_coda = structure(cfg)
     per = pattern(cfg)
     p: Params = {"embed": L.init_embedding(gen, cfg)}
     p["prelude"] = [init_layer(gen, cfg, cfg.layer_kind(i), i)
                     for i in range(n_pre)]
-
-    def init_group():
-        return {f"p{j}": init_layer(gen, cfg, kind, n_pre + j)
-                for j, kind in enumerate(per)}
-
-    if n_grp > 0:
-        group = init_group()
-        p["blocks"] = tree_map(
-            lambda leaf: leaf.new_empty((n_grp,) + tuple(leaf.shape)), group)
-        stacked = [leaf for _, leaf in tree_paths(p["blocks"])]
-        for g in range(n_grp):
-            if group is None:
-                group = init_group()
-            for dst, (_, src) in zip(stacked, tree_paths(group)):
-                dst[g].copy_(src)
-            group = None                 # freed before the next draw
-    else:
-        p["blocks"] = None
+    p["blocks"] = init_stacked(
+        lambda: {f"p{j}": init_layer(gen, cfg, kind, n_pre + j)
+                 for j, kind in enumerate(per)}, n_grp)
     base = n_pre + n_grp * len(per)
     p["coda"] = [init_layer(gen, cfg, cfg.layer_kind(base + j), base + j)
                  for j in range(n_coda)]
@@ -301,22 +312,26 @@ def _layers(cfg: ModelConfig, tree) -> List[Tuple[Params, str]]:
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
             prefix_embeds: Optional[torch.Tensor] = None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens (B, S) -> (logits (B, S, V_pad) f32, moe_aux f32).
+    """tokens (B, S) [+ prefix embeddings (B, P, D), the vlm family's stub
+    frontend] -> (logits (B, P + S, V_pad) f32, moe_aux f32).
 
-    Empty ``prelude``/``coda`` lists and a missing ``blocks`` may be absent
-    from ``params`` (a tree rebuilt from a flat row drops empty subtrees)."""
-    if prefix_embeds is not None:
-        raise NotImplementedError(
-            "forward: prefix embeddings are not ported to PyTorch yet — "
-            "ROADMAP Queue A item 6 (the vlm family)")
+    The ``sqrt(d_model)`` scale applies to the token embeddings only; the
+    prefix is cast to the activation dtype and goes in front, unscaled,
+    and its P positions attend to each other both ways.  Empty
+    ``prelude``/``coda`` lists and a missing ``blocks`` may be absent from
+    ``params`` (a tree rebuilt from a flat row drops empty subtrees)."""
     table = params["embed"]["table"]
     x = _embed(cfg, table, tokens)
-    b, s = tokens.shape
+    prefix_len = 0
+    if prefix_embeds is not None:
+        prefix_len = prefix_embeds.shape[1]
+        x = torch.cat([prefix_embeds.to(x.dtype), x], dim=1)
+    b, s = x.shape[:2]
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for lp, kind in _layers(cfg, params):
-        x, a = apply_layer(cfg, lp, kind, x, positions)
+        x, a = apply_layer(cfg, lp, kind, x, positions, prefix_len)
         if a is not None:
             aux = aux + a
 

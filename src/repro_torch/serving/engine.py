@@ -24,7 +24,9 @@ greedy streams are what the two packages share.
 
 Everything runs on ``device`` ("cuda" unless the caller asks for "cpu");
 the params must already be there.  Decoder-only families (dense, moe, ssm,
-hybrid); enc-dec decoding raises (ROADMAP Queue A item 6).
+hybrid, and vlm decoding text only); an enc-dec config is refused with
+``ValueError``, as the JAX package's engine refuses it (``launch/serve.py``
+serves that family).
 """
 from __future__ import annotations
 

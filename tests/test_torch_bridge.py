@@ -294,9 +294,13 @@ def test_serve_cli_runs_grok_smoke_on_the_cpu():
 
 
 @pytest.mark.parametrize("arch", ["seamless-m4t-medium"])
-def test_serve_unported_families_name_their_item(arch):
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        T_SERVE.serve(arch, True, 1, 4, 2, device="cpu")
+def test_serve_unported_families_name_their_item(arch, capsys):
+    """The encoder-decoder family serves (stub frames, the cross caches,
+    ``E_prefill``): greedy sequences of the last prompt token and ``gen``
+    more, and its ``arch=`` line; serving still defaults to the card."""
+    seqs = T_SERVE.serve(arch, True, 1, 4, 2, device="cpu")
+    assert seqs.shape == (1, 3)
+    assert f"arch={arch}-smoke batch=1 device=cpu" in capsys.readouterr().out
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             T_SERVE.serve("smollm-135m", True, 1, 4, 2)

@@ -32,13 +32,15 @@ def test_port_imports_with_jax_absent():
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 15
     # the mesh slice's modules, the baselines, the convergence bound,
-    # checkpointing and the hybrid family are among those imported and
-    # scanned
+    # checkpointing, the hybrid, vlm and encoder-decoder families are among
+    # those imported and scanned
     assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh",
             "repro_torch.core.baselines", "repro_torch.core.convergence",
             "repro_torch.checkpoint", "repro_torch.checkpoint.io",
             "repro_torch.models.rglru",
-            "repro_torch.configs.recurrentgemma_2b"} <= set(mods)
+            "repro_torch.configs.recurrentgemma_2b",
+            "repro_torch.models.encdec", "repro_torch.configs.paligemma_3b",
+            "repro_torch.configs.seamless_m4t_medium"} <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(

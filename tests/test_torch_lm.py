@@ -247,12 +247,24 @@ def test_run_lm_federation_defaults_to_the_card():
 
 @pytest.mark.parametrize("make, item", [
     (lambda: T_LW.LMRunConfig(resident_fleet=False), 4),
-    (lambda: T_LW.LMRunConfig(mesh_shards=2, resident_fleet=False), 4),
-    (lambda: T_R.get_smoke_config("seamless-m4t-medium"), 6),
-    (lambda: T_R.get_config("paligemma-3b"), 6)])
+    (lambda: T_LW.LMRunConfig(mesh_shards=2, resident_fleet=False), 4)])
 def test_lm_unported_paths_name_their_roadmap_item(make, item):
     with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
         make()
+
+
+@pytest.mark.parametrize("arch, feed", [
+    ("seamless-m4t-medium", "frames"), ("paligemma-3b", "prefix_embeds")])
+def test_lm_fleet_refuses_the_stub_frontend_families(arch, feed):
+    """The fleet's row-step feeds tokens, labels and the loss mask only (as
+    the JAX package's, which fails on these families at its first row-step:
+    tests/test_torch_vlm.py, tests/test_torch_encdec.py): the port refuses
+    them at set-up, before any draw or allocation, naming the feed."""
+    for get in (T_R.get_smoke_config, T_R.get_config):
+        cfg = get(arch)
+        with pytest.raises(ValueError, match=f"batch\\['{feed}'\\]"):
+            T_LW.run_lm_federation(_mech(), cfg, T_LW.LMRunConfig(
+                n_workers=2, n_rounds=1, batch=1, seq=8), device="cpu")
 
 
 def test_use_kernel_alias_warns_and_changes_nothing():
@@ -271,9 +283,10 @@ def test_use_kernel_alias_warns_and_changes_nothing():
 
 def test_attention_decode_and_cross_branches_name_serving():
     """The decode-cache branch runs (serving is ported): one step writes its
-    key and value rows at ``cache_pos`` in place; cross-attention still
-    raises, naming its ROADMAP item (held against the reference in
-    tests/test_torch_decode.py)."""
+    key and value rows at ``cache_pos`` in place (held against the
+    reference in tests/test_torch_decode.py); the cross-attention branch
+    (``kv_x``: q from x, k and v from ``kv_x``, no rope, no mask) equals
+    the reference's on the same params and inputs, f32."""
     from repro_torch.models import layers as T_L
     cfg = _cfg("float32")
     params = T_R.init_params(cfg, torch.Generator().manual_seed(0))
@@ -290,8 +303,27 @@ def test_attention_decode_and_cross_branches_name_serving():
     assert y.shape == (1, 1, cfg.d_model) and new["k"] is cache["k"]
     written = cache["k"].abs().sum(dim=(0, 2, 3)) > 0
     assert written.tolist() == [i == 3 for i in range(8)]
-    with pytest.raises(NotImplementedError, match="Queue A item 6"):
-        T_L.multihead_attention(cfg, p, x, T_L.AttnSpec(), pos, kv_x=x)
+    jax = pytest.importorskip("jax")
+    import jax.numpy as jnp
+    from repro.models import layers as R_L
+    from repro.models import registry as R_R
+    kv = torch.randn((1, 5, cfg.d_model),
+                     generator=torch.Generator().manual_seed(2))
+    xq = torch.randn((1, 3, cfg.d_model),
+                     generator=torch.Generator().manual_seed(3))
+    q_pos = torch.arange(3, dtype=torch.int32)[None]
+    got, none = T_L.multihead_attention(cfg, p, xq, T_L.AttnSpec(causal=False),
+                                        q_pos, kv_x=kv)
+    assert none is None and got.shape == (1, 3, cfg.d_model)
+    r_cfg = dataclasses.replace(R_R.get_smoke_config(cfg.arch_id.replace(
+        "-smoke", "")), dtype="float32")
+    with jax.default_device(jax.devices("cpu")[0]):
+        want, _ = R_L.multihead_attention(
+            r_cfg, {k: jnp.asarray(v.numpy()) for k, v in p.items()},
+            jnp.asarray(xq.numpy()), R_L.AttnSpec(causal=False),
+            jnp.asarray(q_pos.numpy()), kv_x=jnp.asarray(kv.numpy()))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                               rtol=1e-5)
 
 
 @pytest.mark.parametrize("kw", [
