@@ -7,7 +7,8 @@ recurrentgemma-2b, paligemma-3b and seamless-m4t-medium at full size), the
 model plane of the vlm and encoder-decoder families at full width, the
 fleet mesh (``mesh_shards`` = 2 and 4 gloo ranks sharing the card) on the
 simulation plane and the LM fleet, the Table-I arena (DySTop against four
-baselines), Theorem 1's bound, and snapshots with resume on both planes.
+baselines), Theorem 1's bound, snapshots with resume on both planes, the
+legacy per-leaf paths of both planes, and the trainer (``launch/train.py``).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -272,12 +273,45 @@ model freed before the next phase:
 35. seamless's smoke geometry, card vs CPU: loss within 2e-2, and
    ``fill_cross_cache`` + ``E_prefill``'s logits within 0.25.
 
+Phases 36-39 run the legacy per-leaf paths on both planes and the trainer:
+
+36. zero the launch counters and run ``SimConfig(fused_engine=False)`` at
+   the defaults on the card (100 workers, 300 rounds, DySTop(V=10,
+   t_thre=20), nothing cut): the control plane must equal phase 3's fused
+   run, ``acc_global`` be within 0.1 of it (other batch streams) and rise,
+   ``aggregate``'s dense entry launch once per leaf per round (6 x 300) and
+   no other kernel launch; ``aggregate`` is held on each per-leaf shape's
+   first-call inputs ((100, 100) x (100, P_leaf), P_leaf in {10, 64, 640,
+   2048, 4096}) against ``aggregate_plain`` (f32 atol and rtol 1e-5) and
+   timed as phase 4 times it;
+37. a 60-round copy on the card and on the CPU (the same numpy batches:
+   control plane identical, ``acc_global`` within 1e-3); then 20 rounds with
+   a snapshot every 10 on the card, resumed from round 10: the control
+   plane and ``acc_global`` bit-equal to the uninterrupted run's;
+38. zero the counters and run phase 8's smollm-135m config for 10 rounds
+   (cut: rounds, for the time limit) with ``resident_fleet=False``: flash
+   launching once per layer in every forward (8 workers x 10 rounds plus
+   the evals) and ``aggregate`` once a mixing round, nothing else; against
+   a 10-round resident run: control plane identical, ``loss_global``
+   within rtol 1e-3, the largest ``pbuf``/``obuf`` gaps and the peak
+   memory reported; flash held on its first call's inputs (2 bf16 ulps)
+   and timed beside ``scaled_dot_product_attention``;
+39. zero the counters and run ``launch.train.train("smollm-135m",
+   smoke=False, steps=20, batch=8, seq=128)`` on the card: flash launching
+   30 x 20 times and nothing else, the loss falling (the last five steps'
+   mean below the first five's), the checkpoint reading back bit-equal
+   (then deleted), ms per step reported, five more steps profiled for the
+   busy share, flash held on its first call's inputs and timed; then the
+   smoke geometry for 5 steps on the card and on the CPU from the same
+   params and batches, losses within 2e-2.
+
 Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
 ``{"mamba2": ...}``, ``{"serving": ...}``, ``{"mesh": ...}``, ``{"arena":
 ...}``, ``{"convergence": ...}``, ``{"sigkill_resume": ...}``,
 ``{"lm_snapshot": ...}``, ``{"hybrid": ...}``, ``{"moe_train": ...}``,
-``{"vlm": ...}``, ``{"encdec": ...}``, ``{"kernels": [...]}`` (the three
-mesh twins as row 3, then phases 26, 29, 33 and 34's shapes),
+``{"vlm": ...}``, ``{"encdec": ...}``, ``{"legacy": ...}``, ``{"train":
+...}``, ``{"kernels": [...]}`` (the three mesh twins as row 3, then phases
+26, 29, 33, 34, 36, 38 and 39's shapes),
 ``{"script": ...}`` and ``{"sim": {...}}`` lines, the card's name and power
 limit and, as the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -2470,6 +2504,351 @@ def encdec_serve_phase(kept: dict, calls: Counter) -> dict:
     return out
 
 
+# phase 36: the legacy sim path's dense Eq. 4, one aggregate launch per leaf
+# per round; the SimConfig() MLP's leaves have these widths (b1, b2, b3, w1,
+# w2, w3)
+LEGACY_WIDTHS = (64, 64, 10, 32 * 64, 64 * 64, 64 * 10)
+LEGACY_LEAVES = len(LEGACY_WIDTHS)
+LEGACY_ACC_TOL = 0.1               # acc_global, legacy vs fused (the JAX
+                                   #   package's test_fused_history_matches_
+                                   #   legacy gate: other batch streams)
+LEGACY_LM_RTOL = 1e-3              # loss_global, legacy LM vs resident
+LM_CONTROL = ("rounds", "sim_time", "comm_gb", "staleness_avg",
+              "staleness_max", "round_durations", "round_active")
+# phase 39: launch/train.py at smollm-135m's full width
+TRAIN_RUN = dict(arch="smollm-135m", steps=20, batch=8, seq=128)
+TRAIN_SMOKE_STEPS = 5
+
+
+def legacy_sim_phase(fused_hist, dev) -> tuple:
+    """Phase 36: ``SimConfig(fused_engine=False)`` at the defaults on the
+    card, the counters zeroed just before: the control plane must equal
+    phase 3's fused run, ``acc_global`` be within ``LEGACY_ACC_TOL`` of it
+    and rise, ``aggregate`` launch once per leaf per round and nothing else
+    launch; then ``aggregate`` is held on each per-leaf shape's first-call
+    inputs against ``aggregate_plain`` (f32 atol and rtol 1e-5) and timed
+    beside its bound, its plain version and ``matmul``."""
+    import numpy as np
+    import torch
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl.simulator import SimConfig, run_simulation
+    from repro_torch.kernels import aggregate as AGG
+    cfg = SimConfig(fused_engine=False)
+    kept, calls = {}, Counter()
+    orig = AGG.aggregate
+
+    def rec_agg(W, X, col_ids=None, **kw):
+        key = (tuple(W.shape), tuple(X.shape), col_ids is not None)
+        calls[key] += 1
+        if key not in kept:
+            kept[key] = (W.detach().clone(), X.detach().clone())
+        return orig(W, X, col_ids, **kw)
+
+    AGG.aggregate = rec_agg
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        h = run_simulation(DySTop(V=10.0, t_thre=20), cfg)
+    finally:
+        AGG.aggregate = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    check(launches["aggregate"] == LEGACY_LEAVES * cfg.n_rounds
+          and sum(launches.values()) == launches["aggregate"],
+          f"legacy sim launches {launches}, expected aggregate "
+          f"{LEGACY_LEAVES} x {cfg.n_rounds} and nothing else")
+    for f in SIM_CONTROL:
+        check(getattr(h, f) == getattr(fused_hist, f),
+              f"legacy sim: {f} differs from phase 3's fused run")
+    acc = np.asarray(h.acc_global)
+    gap = float(np.max(np.abs(acc - np.asarray(fused_hist.acc_global))))
+    check(np.isfinite(acc).all() and np.isfinite(h.loss_global).all()
+          and acc[-1] > acc[0] and gap <= LEGACY_ACC_TOL,
+          f"legacy sim accuracy {acc.tolist()}, {gap} from phase 3's")
+    # one shape per leaf width: b1 and b2 (64 columns each) share one
+    check(sorted(k[1][1] for k in kept) == sorted(set(LEGACY_WIDTHS))
+          and all(k[0] == (N_WORKERS, N_WORKERS) and not k[2]
+                  for k in kept),
+          f"legacy sim aggregate shapes {sorted(kept)}")
+    rows = []
+    for (w_shape, x_shape, _), (W, X) in sorted(kept.items(),
+                                               key=lambda kv: kv[0][1][1]):
+        got = orig(W, X)
+        want = AGG.aggregate_plain(W, X)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        check(bool(torch.isfinite(got).all())
+              and bool(((got - want).abs() <= 1e-5 + 1e-5 * want.abs())
+                       .all()),
+              f"aggregate at the legacy shape {w_shape} x {x_shape}: "
+              f"|err| {err} past f32 atol and rtol 1e-5")
+        k, n = w_shape
+        b_ms, b_by = agg_cost(k, W.cpu(), None, x_shape[1], n)
+        rows.append({
+            "label": "legacy sim, per leaf", "k": k, "n_in": n,
+            "P": x_shape[1], "col_sparse": False,
+            "launches": calls[(w_shape, x_shape, False)],
+            "max_abs_err": err,
+            "ms": device_ms(lambda: orig(W, X)),
+            "plain_ms": device_ms(lambda: AGG.aggregate_plain(W, X)),
+            "library_ms": device_ms(lambda: torch.matmul(W, X)),
+            "call_ms": call_ms(lambda: orig(W, X)),
+            "bound_ms": b_ms, "bound_by": b_by})
+        print(f"aggregate, legacy leaf ({k}, {n}) x {x_shape}: {rows[-1]}",
+              flush=True)
+    out = {"config": "SimConfig(fused_engine=False) defaults (100 workers, "
+                     "300 rounds, nothing cut), DySTop(V=10.0, t_thre=20)",
+           "rounds": h.rounds[-1], "wall_s": wall,
+           "setup_wall_s": h.setup_wall_s, "plan_wall_s": h.plan_wall_s,
+           "eval_wall_s": h.eval_wall_s, "launches": launches,
+           "acc_first": float(acc[0]), "acc_final": float(acc[-1]),
+           "fused_acc_final": float(fused_hist.acc_global[-1]),
+           "acc_gap_to_fused": gap, "control_plane": "identical to phase 3"}
+    print(f"legacy sim path: {h.rounds[-1]} rounds in {wall:.2f} s, "
+          f"launches {launches}, acc {acc[0]:.4f} -> {acc[-1]:.4f} (fused "
+          f"{fused_hist.acc_global[-1]:.4f}, max gap {gap:.4f})", flush=True)
+    return out, rows
+
+
+def legacy_card_cpu_phase(root: pathlib.Path) -> dict:
+    """Phase 37: a 60-round copy of phase 36's config on the card and on
+    the CPU (the same numpy batches: control plane identical,
+    ``acc_global`` within 1e-3), then 20 rounds with a snapshot every 10
+    on the card, resumed from round 10: the history equals the
+    uninterrupted run's bit for bit."""
+    import shutil
+    import numpy as np
+    from repro_torch.checkpoint import io as CIO
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl.simulator import SimConfig, run_simulation
+    mech = lambda: DySTop(V=10.0, t_thre=20)  # noqa: E731
+    short = SimConfig(n_rounds=60, fused_engine=False)
+    card = run_simulation(mech(), short)
+    cpu = run_simulation(mech(), short, device="cpu")
+    for f in SIM_CONTROL:
+        check(getattr(card, f) == getattr(cpu, f),
+              f"legacy sim card vs CPU: {f} differs")
+    gap = float(np.max(np.abs(np.asarray(card.acc_global)
+                              - np.asarray(cpu.acc_global))))
+    check(gap <= 1e-3, f"legacy sim card vs CPU: acc_global differs by "
+          f"{gap}")
+    shutil.rmtree(root, ignore_errors=True)
+    ck = SimConfig(n_rounds=20, fused_engine=False, checkpoint_every=10,
+                   checkpoint_dir=str(root))
+    full = run_simulation(mech(), ck)
+    res = run_simulation(mech(), ck,
+                         resume_from=str(CIO.checkpoint_path(root, 10)))
+    for f in SIM_CONTROL + ("acc_global",):
+        check(getattr(res, f) == getattr(full, f),
+              f"legacy sim resume: {f} differs from the uninterrupted run")
+    curves_equal = all(getattr(res, f) == getattr(full, f)
+                       for f in SIM_CURVES)
+    shutil.rmtree(root, ignore_errors=True)
+    out = {"card_vs_cpu_rounds": short.n_rounds, "card_vs_cpu_acc_gap": gap,
+           "resume": "20 rounds, snapshot every 10, resumed from round 10",
+           "resume_control_and_acc_global_bit_equal": True,
+           "resume_all_curves_bit_equal": curves_equal}
+    print(f"legacy sim card vs CPU ({short.n_rounds} rounds): control plane "
+          f"identical, max |acc gap| {gap:.2e}; resume from round 10 "
+          f"bit-equal (all curves: {curves_equal})", flush=True)
+    return out
+
+
+def legacy_lm_phase(mech, cfg, run10) -> tuple:
+    """Phase 38: ``run10`` (smollm-135m at full width, 10 rounds) with
+    ``resident_fleet=False`` on the card, the counters zeroed just before:
+    flash launches once per layer in each of the N forwards a round and in
+    each eval, nothing but flash and ``aggregate`` launches; then the
+    resident engine on the same config: control plane identical,
+    ``loss_global`` within ``LEGACY_LM_RTOL``, the largest ``pbuf``/``obuf``
+    gaps reported; flash held on its first call's inputs (2 bf16 ulps) and
+    timed beside ``scaled_dot_product_attention``."""
+    import numpy as np
+    import torch
+    from repro_torch.dfl import lm_worker as LW
+    from repro_torch.kernels import flash_attention as FA
+    legacy = dataclasses.replace(run10, resident_fleet=False)
+    kept, calls = {}, Counter()
+    orig = FA.flash_attention
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention = flash_keeper(kept, calls, orig)
+    zero_counters()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        fleet, h = LW.run_lm_federation(mech(), cfg, legacy)
+    finally:
+        FA.flash_attention = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    n_forwards = legacy.n_workers * legacy.n_rounds + len(h.rounds)
+    check(launches["flash_attention"] == cfg.n_layers * n_forwards
+          and 0 < launches["aggregate"] <= legacy.n_rounds
+          and sum(launches.values()) == launches["flash_attention"]
+          + launches["aggregate"],
+          f"legacy LM launches {launches}: expected flash {cfg.n_layers} x "
+          f"{n_forwards} forwards, aggregate once a mixing round")
+    check(np.isfinite(h.loss_global).all() and all_finite(fleet.pbuf)
+          and all_finite(fleet.obuf), "legacy LM: not finite")
+    torch.cuda.reset_peak_memory_stats()
+    ref, rh = LW.run_lm_federation(mech(), cfg, run10)
+    for f in LM_CONTROL:
+        check(getattr(h, f) == getattr(rh, f),
+              f"legacy LM: {f} differs from the resident run")
+    lg, lg1 = np.asarray(h.loss_global), np.asarray(rh.loss_global)
+    rel = float(np.max(np.abs(lg - lg1) / np.abs(lg1)))
+    check(rel <= LEGACY_LM_RTOL, f"legacy LM loss_global {lg.tolist()} vs "
+          f"resident {lg1.tolist()}")
+    gaps = {name: max(float((a - b).abs().max()) for a, b in zip(x, y))
+            for name, x, y in (("pbuf", fleet.pbuf, ref.pbuf),
+                               ("obuf", fleet.obuf, ref.obuf))}
+    del fleet, ref
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(len(kept) == 1, f"legacy LM flash shapes {sorted(kept)}")
+    key, ins = next(iter(kept.items()))
+    row = flash_path_row(key, ins, calls[key], "legacy LM (phase 38)")
+    out = {"config": "phase 8's smollm-135m config (30 layers) at n_rounds="
+                     "10 (cut: rounds, for the time limit), "
+                     "resident_fleet=False",
+           "rounds": h.rounds[-1], "wall_s": wall,
+           "setup_wall_s": h.setup_wall_s, "eval_wall_s": h.eval_wall_s,
+           "resident_wall_s": rh.wall_s, "launches": launches,
+           "forwards": n_forwards, "loss_global": lg.tolist(),
+           "resident_loss_global": lg1.tolist(), "max_loss_rel_gap": rel,
+           "max_pbuf_gap": gaps["pbuf"], "max_obuf_gap": gaps["obuf"],
+           "max_memory_allocated_bytes": peak,
+           "flash_max_bf16_ulps": row["max_bf16_ulps"]}
+    print(f"legacy LM path: {h.rounds[-1]} rounds in {wall:.2f} s "
+          f"(resident {rh.wall_s:.2f} s), launches {launches}, loss "
+          f"{lg.tolist()} vs {lg1.tolist()}, gaps {gaps}, peak "
+          f"{peak / 1e9:.2f} GB", flush=True)
+    return out, row
+
+
+def train_phase(root: pathlib.Path) -> tuple:
+    """Phase 39: ``launch.train.train`` on smollm-135m at full width on the
+    card (``TRAIN_RUN``), the counters zeroed just before: flash launches
+    once per layer per step and nothing else launches, the loss falls (the
+    last five steps' mean below the first five's), the checkpoint reads back
+    bit-equal through ``load_checkpoint``; flash held on its first call's
+    inputs and timed; five more steps profiled (the busy share); then the
+    smoke geometry on the card and on the CPU from the same params and
+    batches, losses within ``LM_CARD_CPU_TOL``."""
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.checkpoint import io as CIO
+    from repro_torch.data.synthetic import lm_batches, make_token_stream
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import train as TR
+    from repro_torch.models import registry as R
+    from repro_torch.tree import tree_paths
+    shutil.rmtree(root, ignore_errors=True)
+    ck = root / "train.npz"
+    kept, calls = {}, Counter()
+    orig = FA.flash_attention
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention = flash_keeper(kept, calls, orig)
+    zero_counters()
+    t0 = time.perf_counter()
+    try:
+        run = TR.train(TRAIN_RUN["arch"], smoke=False,
+                       steps=TRAIN_RUN["steps"], batch=TRAIN_RUN["batch"],
+                       seq=TRAIN_RUN["seq"], ckpt_path=str(ck),
+                       device="cuda", return_run=True)
+    finally:
+        FA.flash_attention = orig
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counters()
+    peak = torch.cuda.max_memory_allocated()
+    n_layers = run.cfg.n_layers
+    check(launches["flash_attention"] == n_layers * TRAIN_RUN["steps"]
+          and sum(launches.values()) == launches["flash_attention"],
+          f"trainer launches {launches}: expected flash {n_layers} x "
+          f"{TRAIN_RUN['steps']} and nothing else")
+    losses = np.asarray(run.losses)
+    check(np.isfinite(losses).all() and losses[-5:].mean()
+          < losses[:5].mean(), f"trainer loss did not fall: "
+          f"{losses.tolist()}")
+    params, opt, extra = CIO.load_checkpoint(ck, run.params, run.opt_state)
+    same = all(a.dtype == b.dtype and torch.equal(a, b)
+               for tree, want in ((params, run.params),
+                                  (opt, run.opt_state))
+               for (_, a), (_, b) in zip(tree_paths(tree),
+                                         tree_paths(want)))
+    check(same and extra["steps"] == TRAIN_RUN["steps"],
+          "trainer checkpoint does not read back bit-equal")
+    ck_bytes = ck.stat().st_size
+    del params, opt
+    shutil.rmtree(root, ignore_errors=True)
+    step_ms = statistics.median(run.step_wall_s[1:]) * 1e3
+    first_step_s = run.step_wall_s[0]
+    # the card's busy share over five more steps from the trained params,
+    # under the profiler
+    prof_walls = []
+    busy_s, busy_top, busy_extra = device_profile(
+        lambda: prof_walls.extend(TR.fit(
+            run.cfg, 5, TRAIN_RUN["batch"], TRAIN_RUN["seq"], 3e-4, "adam",
+            torch.device("cuda"), log_every=5,
+            params=run.params).step_wall_s))
+    check(len(kept) == 1, f"trainer flash shapes {sorted(kept)}")
+    key, ins = next(iter(kept.items()))
+    n_params = sum(t.numel() for _, t in tree_paths(run.params))
+    del run
+    gc.collect()
+    torch.cuda.empty_cache()
+    row = flash_path_row(key, ins, calls[key], "trainer (phase 39)")
+    # the smoke geometry, card vs CPU, from the same params and batches
+    scfg = R.get_smoke_config(TRAIN_RUN["arch"])
+    init = R.init_params(scfg, torch.Generator().manual_seed(0))
+    stream = make_token_stream(scfg.vocab_size, 200_000)
+    smoke = {d: TR.fit(scfg, TRAIN_SMOKE_STEPS, TRAIN_RUN["batch"],
+                       TRAIN_RUN["seq"], 3e-4, "adam", torch.device(d),
+                       params=init,
+                       batches=lm_batches(stream, TRAIN_RUN["batch"],
+                                          TRAIN_RUN["seq"])).losses
+             for d in ("cuda", "cpu")}
+    gap = float(np.max(np.abs(np.asarray(smoke["cuda"])
+                              - np.asarray(smoke["cpu"]))))
+    check(gap <= LM_CARD_CPU_TOL, f"trainer smoke card vs CPU losses "
+          f"{smoke}")
+    out = {"config": f"launch.train.train({TRAIN_RUN['arch']!r}, "
+                     f"smoke=False, steps={TRAIN_RUN['steps']}, batch="
+                     f"{TRAIN_RUN['batch']}, seq={TRAIN_RUN['seq']}) (30 "
+                     f"layers, nothing cut), adam lr 3e-4",
+           "params": n_params, "wall_s": wall, "ms_per_step": step_ms,
+           "first_step_s": first_step_s, "launches": launches,
+           "losses": losses.tolist(),
+           "first5_mean": float(losses[:5].mean()),
+           "last5_mean": float(losses[-5:].mean()),
+           "checkpoint_bytes": ck_bytes, "checkpoint_bit_equal": True,
+           "profiled_steps": len(prof_walls),
+           "profiled_steps_wall_s": sum(prof_walls),
+           "device_busy_s": busy_s,
+           "device_busy_share": (None if busy_s is None
+                                 else busy_s / sum(prof_walls)),
+           "device_top_kernels": busy_top, **busy_extra,
+           "max_memory_allocated_bytes": peak,
+           "smoke_card_vs_cpu": {"steps": TRAIN_SMOKE_STEPS,
+                                 "card": smoke["cuda"], "cpu": smoke["cpu"],
+                                 "max_loss_gap": gap}}
+    print(f"trainer: {TRAIN_RUN['steps']} steps, {step_ms:.2f} ms a step, "
+          f"loss {losses[:5].mean():.4f} -> {losses[-5:].mean():.4f}, "
+          f"launches {launches}, checkpoint {ck_bytes / 1e9:.2f} GB "
+          f"bit-equal, smoke card vs CPU gap {gap:.2e}", flush=True)
+    return out, row
+
+
 def main() -> int:
     t_script = time.perf_counter()
     # phase 26's fleet all but fills the card: with fixed-size segments the
@@ -3344,10 +3723,28 @@ def main() -> int:
         seamless_m4t_medium.get_smoke_config(), "seamless", seq=64)
     stub_phases_s = time.perf_counter() - t_stub
     print(f"phases 30-35: {stub_phases_s:.1f} s", flush=True)
-    flash_ulps = max([flash_ulps] + [r["max_bf16_ulps"]
-                                     for r in ed_rows.values()])
-    flash_err = max([flash_err] + [r["max_abs_err"]
-                                   for r in ed_rows.values()])
+
+    # ---- 36. the legacy sim path at the defaults ---------------------------
+    t_leg = time.perf_counter()
+    legacy, legacy_agg_rows = legacy_sim_phase(hist, dev)
+
+    # ---- 37. the legacy sim path, card vs CPU, and its resume --------------
+    legacy["card_vs_cpu_and_resume"] = legacy_card_cpu_phase(
+        build_dir / "chip_smoke_legacy")
+
+    # ---- 38. the legacy LM path, smollm-135m at full width -----------------
+    legacy["lm"], legacy_flash = legacy_lm_phase(
+        lm_mech, lm_cfg, dataclasses.replace(lm_run, n_rounds=10))
+
+    # ---- 39. the trainer ---------------------------------------------------
+    train, train_flash = train_phase(build_dir / "chip_smoke_train")
+    legacy_phases_s = time.perf_counter() - t_leg
+    print(f"phases 36-39: {legacy_phases_s:.1f} s", flush=True)
+
+    new_flash = list(ed_rows.values()) + [legacy_flash, train_flash]
+    flash_ulps = max([flash_ulps] + [r["max_bf16_ulps"] for r in new_flash])
+    flash_err = max([flash_err] + [r["max_abs_err"] for r in new_flash])
+    agg_err = max([agg_err] + [r["max_abs_err"] for r in legacy_agg_rows])
 
     top_agg, top_sgd = agg_rows[0], sgd_rows[0]
     kernels = [
@@ -3452,6 +3849,26 @@ def main() -> int:
                 "max_abs_err", "max_bf16_ulps", "shape", "kv_heads",
                 "causal", "ms", "plain_ms", "bound_ms", "bound_by",
                 "library_ms", "library", "library_bf16_ulps")}})
+    for r in legacy_agg_rows:
+        kernels.append({
+            "name": "aggregate",
+            "path": "legacy sim, the dense per-leaf entry (phase 36)",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/aggregate.cu",
+            "replaces": "src/repro/kernels/aggregate.py:220",
+            "entry": "src/repro/kernels/aggregate.py:52",
+            **{k: r[k] for k in ("launches", "max_abs_err", "k", "n_in", "P",
+                                 "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}})
+    for r in (legacy_flash, train_flash):
+        kernels.append({
+            "name": "flash_attention", "path": r["label"], "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+            "replaces": "src/repro/kernels/flash_attention.py:102",
+            "launches": r["calls"], **{k: r[k] for k in (
+                "max_abs_err", "max_bf16_ulps", "shape", "kv_heads",
+                "causal", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms", "library", "library_bf16_ulps")}})
     print(json.dumps({"mesh": {
         "backend": "gloo", "device": "cuda:0 shared by every rank",
         "sim_config": "SimConfig() defaults with mesh_shards=S, "
@@ -3539,10 +3956,14 @@ def main() -> int:
     print(json.dumps({"moe_train": moe_train}))
     print(json.dumps({"vlm": vlm}))
     print(json.dumps({"encdec": encdec}))
+    print(json.dumps({"legacy": {**legacy, "aggregate": legacy_agg_rows,
+                                 "flash": legacy_flash}}))
+    print(json.dumps({"train": {**train, "flash": train_flash}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"script": {"wall_s": time.perf_counter() - t_script,
                                  "phases_26_29_wall_s": new_phases_s,
-                                 "phases_30_35_wall_s": stub_phases_s}}))
+                                 "phases_30_35_wall_s": stub_phases_s,
+                                 "phases_36_39_wall_s": legacy_phases_s}}))
     print(json.dumps({"sim": {
         "config": "SimConfig() defaults, DySTop(V=10.0, t_thre=20)",
         "rounds": hist.rounds[-1], "evals": len(hist.rounds),

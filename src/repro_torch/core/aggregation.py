@@ -18,12 +18,23 @@ max_neighbors+1 nonzero COLUMNS, so the k rows jointly touch only the union
 of their nonzero columns — ``mixing_rows_cols`` restricts the gathered rows
 to that u-column union (``col_union_mask``), cutting the contraction to
 (k, u) @ (u, P) with u <= k*(max_neighbors+1).
+
+``apply_mixing`` is the legacy per-leaf path (``SimConfig(fused_engine=
+False)``): the dense (N, N) W applied to every leaf of a stacked model, one
+``kernels.aggregate`` call per leaf — a second code path beside the flat
+engine, kept as its oracle.
 """
 from __future__ import annotations
 
-from typing import Tuple
+import warnings
+from typing import Any, Optional, Tuple
 
 import numpy as np
+import torch
+
+from repro_torch.kernels import aggregate as AGG
+from repro_torch.kernels.config import KernelConfig
+from repro_torch.tree import tree_leaves, tree_map
 
 
 def mixing_matrix_rows(active: np.ndarray, links: np.ndarray,
@@ -302,3 +313,32 @@ def mixing_rows_cols(W: np.ndarray, active: np.ndarray, links: np.ndarray,
     W_sub = np.ascontiguousarray(W[np.ix_(row_ids, col_ids)], np.float32)
     W_sub[:, u:] = 0.0                     # padded columns contribute nothing
     return W_sub, row_ids, col_ids
+
+
+def apply_mixing(W, stacked_models: Any, kernels: Any = None,
+                 use_kernel: Optional[bool] = None) -> Any:
+    """``new_models = W @ models``, per leaf (the port of
+    ``repro.core.aggregation.apply_mixing``).  Leaves: (N, ...).
+
+    Each leaf is flattened to (N, P_leaf), cast to f32, mixed by the dense
+    (N, N) ``W`` through ``kernels.aggregate`` (``col_ids=None``: the CUDA
+    kernel on a CUDA leaf, ``aggregate_plain`` on a CPU one) and cast back
+    to the leaf's dtype.  ``kernels`` is a ``kernels.config.KernelConfig``
+    (None: the default tiles); ``use_kernel`` is the JAX package's
+    deprecated boolean: the tensor's device picks the kernel here, so it
+    warns and changes nothing."""
+    if use_kernel is not None:
+        warnings.warn(
+            "apply_mixing(use_kernel=...) is deprecated and changes nothing: "
+            "the tensor's device picks the kernel", DeprecationWarning,
+            stacklevel=2)
+    p_blk = (kernels if kernels is not None else KernelConfig()).agg_p_blk
+    dev = tree_leaves(stacked_models)[0].device
+    w = torch.as_tensor(W, dtype=torch.float32).to(dev).contiguous()
+
+    def mix(leaf: torch.Tensor) -> torch.Tensor:
+        flat = leaf.reshape(leaf.shape[0], -1).to(torch.float32).contiguous()
+        out = AGG.aggregate(w, flat, p_blk=p_blk)
+        return out.reshape(leaf.shape).to(leaf.dtype)
+
+    return tree_map(mix, stacked_models)

@@ -94,11 +94,12 @@ def cache_from_reference(cache, device) -> Any:
     return tree_map(lambda leaf: tensor_from_reference(leaf).to(device), cache)
 
 
-def unflatten(buf: torch.Tensor, spec: FlatSpec) -> Params:
+def unflatten(buf: torch.Tensor, spec: FlatSpec, copy: bool = False
+              ) -> Params:
     """(N, P) buffer -> stacked dict with the original shapes/dtypes (views
-    where the dtype is already f32)."""
+    where the dtype is already f32, unless ``copy``)."""
     n = buf.shape[0]
-    return {k: buf[:, o:o + s].reshape((n,) + shape).to(dtype)
+    return {k: buf[:, o:o + s].reshape((n,) + shape).to(dtype, copy=copy)
             for k, o, s, shape, dtype in zip(spec.keys, spec.offsets,
                                              spec.sizes, spec.shapes,
                                              spec.dtypes)}
@@ -160,9 +161,16 @@ def ravel_tree_into(tree, spec: FlatSpec, out: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def unflatten_tree(buf: torch.Tensor, spec: FlatSpec):
-    """(N, P) buffer -> stacked nested tree (leaves (N, ...))."""
-    return tree_from_paths(unflatten(buf, spec).items())
+def unflatten_tree(buf: torch.Tensor, spec: FlatSpec, copy: bool = False):
+    """(N, P) buffer -> stacked nested tree (leaves (N, ...)); ``copy`` as
+    in ``unflatten``."""
+    return tree_from_paths(unflatten(buf, spec, copy).items())
+
+
+def flatten_tree(stacked) -> Tuple[torch.Tensor, FlatSpec]:
+    """Stacked nested tree (leaves (N, ...)) -> ((N, P) f32 buffer,
+    FlatSpec keyed by leaf path): the inverse of ``unflatten_tree``."""
+    return flatten_stacked(dict(tree_paths(stacked)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,8 +187,8 @@ def flatten_fleet(stacked_params, stacked_opt
                   ) -> Tuple[torch.Tensor, torch.Tensor, FleetSpec]:
     """Stacked (params, opt) trees (leaves (N, ...)) -> ((N, P), (N, S) f32
     buffers, FleetSpec)."""
-    pbuf, pspec = flatten_stacked(dict(tree_paths(stacked_params)))
-    obuf, ospec = flatten_stacked(dict(tree_paths(stacked_opt)))
+    pbuf, pspec = flatten_tree(stacked_params)
+    obuf, ospec = flatten_tree(stacked_opt)
     return pbuf, obuf, FleetSpec(params=pspec, opt=ospec)
 
 

@@ -25,9 +25,13 @@ packages see identical control trajectories and batches.  With
 mesh of that many processes (``launch.mesh``,
 ``sharding.rules.FleetSharding``).  ``checkpoint_every`` writes atomic
 snapshots of the whole fleet (``checkpoint.io``, the JAX package's layout)
-that ``resume_from`` continues exactly and ``serving.bridge`` serves.  The
-JAX package's per-call-flatten oracle is not ported: its setting raises
-``NotImplementedError`` naming its ROADMAP item.  The vlm and enc-dec
+that ``resume_from`` continues exactly and ``serving.bridge`` serves.
+
+``LMRunConfig(resident_fleet=False)`` runs the JAX package's per-call-flatten
+oracle instead: the fleet's stacked pytrees are materialized once, each
+round re-flattens them for Eq. 4 (``fleet_mix_stacked``) and trains ALL N
+workers, masking the inactive updates away (``make_fleet_step``), and the
+pytrees are written back once at the end.  The vlm and enc-dec
 families are refused at set-up (``check_trainable``): their row-step would
 need stub prefix embeddings or frames that the JAX package's fleet does not
 feed either.
@@ -45,7 +49,7 @@ import torch
 
 from repro_torch.checkpoint import io as CIO
 from repro_torch.configs.base import ModelConfig
-from repro_torch.core.aggregation import prefer_cols
+from repro_torch.core.aggregation import mixing_rows, prefer_cols
 from repro_torch.core.planner import (HorizonPlanner, PlannedRound,
                                       bucket_key, chunk_spans, mix_is_train)
 from repro_torch.core.scenarios import resolve_scenario
@@ -56,12 +60,14 @@ from repro_torch.dfl import worker as WK
 from repro_torch.dfl.network import (EdgeNetwork, NetworkConfig,
                                      heterogeneous_compute_times)
 from repro_torch.dfl.pipeline import DispatchPipeline
+from repro_torch.kernels import aggregate as AGG
 from repro_torch.kernels.config import KernelConfig
 from repro_torch.launch import mesh as MESH
 from repro_torch.models import registry as R
 from repro_torch.optim import Optimizer, get_optimizer
 from repro_torch.sharding.rules import FleetSharding
-from repro_torch.tree import tree_from_paths, tree_leaves, tree_map
+from repro_torch.tree import (tree_from_paths, tree_leaves, tree_map,
+                              tree_paths)
 
 F32 = torch.float32
 
@@ -73,9 +79,10 @@ class LMFleet:
     ``pbuf`` (N, P) and ``obuf`` (N, S) are the only storage; ``spec``
     carries the ravel metadata of both.  The ``stacked_*`` properties
     materialize the stacked trees (f32 storage holds the bf16 params and the
-    int32 step counter exactly).  On a rank of a fleet mesh the buffers
-    are the rank's ``(block, ·)`` block of the padded fleet while it
-    trains (``init_fleet(shd=...)``)."""
+    int32 step counter exactly); assigning a stacked tree re-flattens it
+    into the buffer, and the round trip is exact.  On a rank of a fleet
+    mesh the buffers are the rank's ``(block, ·)`` block of the padded
+    fleet while it trains (``init_fleet(shd=...)``)."""
     cfg: ModelConfig
     pbuf: torch.Tensor              # (N, P) f32 resident params
     obuf: torch.Tensor              # (N, S) f32 resident optimizer state
@@ -87,9 +94,19 @@ class LMFleet:
     def stacked_params(self):
         return FS.unflatten_tree(self.pbuf, self.spec.params)
 
+    @stacked_params.setter
+    def stacked_params(self, value) -> None:
+        self.pbuf, pspec = FS.flatten_tree(value)
+        self.spec = FS.FleetSpec(params=pspec, opt=self.spec.opt)
+
     @property
     def stacked_opt(self):
         return FS.unflatten_tree(self.obuf, self.spec.opt)
+
+    @stacked_opt.setter
+    def stacked_opt(self, value) -> None:
+        self.obuf, ospec = FS.flatten_tree(value)
+        self.spec = FS.FleetSpec(params=self.spec.params, opt=ospec)
 
     @property
     def model_bytes(self) -> int:
@@ -193,6 +210,99 @@ def fleet_eval(fleet: LMFleet, batch: Dict[str, torch.Tensor],
     """Eq. 11 loss of ``fleet`` on ``batch`` (tokens, labels, loss_mask)."""
     return float(_global_loss(fleet.cfg, fleet.spec.params, fleet.pbuf,
                               alpha, batch))
+
+
+# --------------------------------------------------------------------------- #
+# the per-call-flatten oracle (LMRunConfig(resident_fleet=False))
+# --------------------------------------------------------------------------- #
+
+
+def _mix(buf: torch.Tensor, W, active, links, kernels) -> torch.Tensor:
+    """Eq. 4 on a flat (N, P) buffer: with ``active``/``links`` only the k
+    non-identity rows of W (``worker.mix_flat``, in place), else the dense
+    (N, N) product — one ``kernels.aggregate`` launch either way."""
+    kernels = kernels if kernels is not None else KernelConfig()
+    dev = buf.device
+    if active is not None and links is not None:
+        w_rows, row_ids = mixing_rows(np.asarray(W, np.float32), active,
+                                      links)
+        return WK.mix_flat(buf, torch.from_numpy(w_rows).to(dev),
+                           torch.from_numpy(row_ids).to(dev), kernels)
+    w = torch.as_tensor(W, dtype=F32).to(dev).contiguous()
+    return AGG.aggregate(w, buf, p_blk=kernels.agg_p_blk)
+
+
+def fleet_mix_stacked(stacked_params, W, active: Optional[np.ndarray] = None,
+                      links: Optional[np.ndarray] = None,
+                      kernels: Optional[KernelConfig] = None):
+    """Eq. 4 over a stacked param tree, re-flattening per call: flatten the
+    fleet, mix (``_mix``), unflatten to the tree the masked train step
+    consumes."""
+    buf, spec = FS.flatten_tree(stacked_params)
+    return FS.unflatten_tree(_mix(buf, W, active, links, kernels), spec)
+
+
+def fleet_mix(fleet: LMFleet, W, active: Optional[np.ndarray] = None,
+              links: Optional[np.ndarray] = None,
+              kernels: Optional[KernelConfig] = None) -> None:
+    """Eq. 4 over the resident ``fleet.pbuf`` (``_mix``): no flatten, no
+    pytree."""
+    fleet.pbuf = _mix(fleet.pbuf, W, active, links, kernels)
+
+
+def make_fleet_step(fleet: LMFleet) -> Callable:
+    """The oracle's train step over stacked trees: ``step(stacked_params,
+    stacked_opt, batch, active) -> (stacked_params, stacked_opt, losses
+    (N,))``.  It trains ALL N workers, one after another (the JAX package
+    vmaps them), and masks the inactive updates away with the reference's
+    ``n * a + o * (1 - a)``, ``a`` in {0, 1} cast to each leaf's dtype (bit
+    for bit ``n`` or ``o``); each worker's new row is written into the
+    stacked trees in place."""
+    cfg, opt = fleet.cfg, fleet.optimizer
+
+    def masked(new_tree, old_tree, stacked, i: int, a: torch.Tensor):
+        for (_, nw), (_, od), (_, st) in zip(tree_paths(new_tree),
+                                             tree_paths(old_tree),
+                                             tree_paths(stacked)):
+            am = a.to(nw.dtype)
+            st[i] = nw * am + od * (1 - am)
+
+    def step(sp, so, batch: Dict[str, torch.Tensor], active):
+        active = np.asarray(active.cpu() if torch.is_tensor(active)
+                            else active)
+        losses = torch.zeros((len(active),), dtype=F32,
+                             device=tree_leaves(sp)[0].device)
+        for i in range(len(active)):
+            params = tree_map(lambda leaf: leaf[i].detach().requires_grad_(),
+                              sp)
+            paths = [path for path, _ in tree_paths(params)]
+            with torch.enable_grad():
+                loss, _ = R.compute_loss(cfg, params,
+                                         {k: v[i] for k, v in batch.items()})
+                grads = torch.autograd.grad(loss, tree_leaves(params))
+            with torch.no_grad():
+                state = tree_map(lambda leaf: leaf[i], so)
+                old = tree_map(torch.Tensor.detach, params)
+                new_p, new_s = opt.update(tree_from_paths(zip(paths, grads)),
+                                          state, old)
+                a = torch.tensor(float(active[i]), dtype=F32)
+                masked(new_p, old, sp, i, a)
+                masked(new_s, state, so, i, a)
+            losses[i] = loss.detach()
+        return sp, so, losses
+
+    return step
+
+
+@torch.no_grad()
+def fleet_eval_stacked(cfg: ModelConfig, stacked_params,
+                       batch: Dict[str, torch.Tensor],
+                       alpha: torch.Tensor) -> float:
+    """Eq. 11 eval through the stacked tree: the global model leaf by leaf
+    (``tensordot(alpha, leaf, 1)`` in f32, cast to the leaf's dtype)."""
+    gm = tree_map(lambda leaf: torch.tensordot(
+        alpha, leaf.to(F32), dims=1).to(leaf.dtype), stacked_params)
+    return float(R.compute_loss(cfg, gm, batch)[0])
 
 
 # --------------------------------------------------------------------------- #
@@ -408,9 +518,12 @@ class LMRunConfig:
     ``checkpoint_dir``, keeping the ``checkpoint_keep`` newest (snapshot
     rounds are flush boundaries with the pipeline drained).  ``use_kernel``
     (the JAX package's deprecated alias) warns and changes nothing: the
-    tensor's device picks the kernel.  ``resident_fleet=False`` is validated
-    as the JAX package validates it and then raises ``NotImplementedError``
-    naming its ROADMAP item.
+    tensor's device picks the kernel.  ``resident_fleet=False`` runs the
+    JAX package's per-call-flatten oracle (see the module docstring): one
+    round per dispatch, so ``scan_horizon``, ``pipeline_depth``,
+    ``col_sparse_mix``, ``host_batch_gather`` and ``min_bucket`` do not
+    apply, and it takes no mesh (``mesh_shards > 1`` raises ``ValueError``
+    when the run starts).
     """
     n_workers: int = 8
     n_rounds: int = 30
@@ -491,11 +604,6 @@ class LMRunConfig:
                 "the tensor's device picks the kernel (CUDA tensors run the "
                 "CUDA kernels, CPU tensors their plain versions)",
                 DeprecationWarning, stacklevel=2)
-        if not self.resident_fleet:
-            raise NotImplementedError(
-                "LMRunConfig: resident_fleet=False (the per-call-flatten "
-                "oracle) is not ported to PyTorch yet — ROADMAP Queue A "
-                "item 4")
 
 
 @dataclasses.dataclass
@@ -591,6 +699,9 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     device beside its optimizer-state block.
     """
     check_trainable(cfg)
+    if run.mesh_shards > 1 and not run.resident_fleet:
+        raise ValueError("mesh_shards > 1 requires the resident engine "
+                         "(resident_fleet=True)")
     dev = resolve_device(device if device is not None else run.device,
                          "run_lm_federation")
     if run.mesh_shards > 1 and not MESH.in_group():
@@ -679,9 +790,18 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
         for k, v in extra["history"].items():
             if hasattr(hist, k):
                 setattr(hist, k, v)
-    engine = LMEngine(cfg, fleet.optimizer, fleet.spec, kernels=run.kernels,
-                      shd=shd)
-    horizon = max(1, run.scan_horizon)
+    if run.resident_fleet:
+        engine = LMEngine(cfg, fleet.optimizer, fleet.spec,
+                          kernels=run.kernels, shd=shd)
+        horizon = max(1, run.scan_horizon)
+        sp = so = step = None
+    else:
+        # the oracle's stacked pytrees, materialized once (copies: the
+        # resident buffers stay as they are until the write-back)
+        engine, horizon = None, 1
+        sp = FS.unflatten_tree(fleet.pbuf, fleet.spec.params, copy=True)
+        so = FS.unflatten_tree(fleet.obuf, fleet.spec.opt, copy=True)
+        step = make_fleet_step(fleet)
     on_card = dev.type == "cuda"
     hist.setup_wall_s = time.time() - t_wall
 
@@ -692,6 +812,17 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     loss_rows: List[Tuple[torch.Tensor, List[np.ndarray]]] = []
 
     def flush():
+        nonlocal sp, so
+        if step is not None:
+            for p, b in pending:
+                sp = fleet_mix_stacked(sp, p.W, p.active, p.links,
+                                       kernels=run.kernels)
+                batch = {k: torch.from_numpy(v).to(dev)
+                         for k, v in b.items()}
+                sp, so, losses = step(sp, so, batch, p.active)
+                loss_rows.append((losses[None], [p.active]))
+            pending.clear()
+            return
         plans = [p for p, _ in pending]
         t0 = time.perf_counter()
         spans = list(chunk_spans(plans, n, col_sparse=run.col_sparse_mix,
@@ -733,7 +864,10 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
         history; called after a drain, so the buffers are round-consistent.
         Under a mesh rank 0 gathers the blocks into host memory and alone
         writes."""
-        if shd is None:
+        if step is not None:
+            pb = FS.flatten_tree(sp)[0].cpu()
+            ob = FS.flatten_tree(so)[0].cpu()
+        elif shd is None:
             pb, ob = fleet.pbuf.cpu(), fleet.obuf.cpu()
         else:
             pb = shd.gather_rows(fleet.pbuf, device="cpu")
@@ -752,9 +886,12 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     while planner.t < run.n_rounds:
         t0p = time.perf_counter()
         p = planner.plan_round()
-        # resolve the shape-bucket key at plan time (memoized on the plan)
-        bucket_key(p, n, col_sparse=run.col_sparse_mix,
-                   min_bucket=run.min_bucket, mesh_shards=run.mesh_shards)
+        if engine is not None:
+            # resolve the shape-bucket key at plan time (memoized on the
+            # plan)
+            bucket_key(p, n, col_sparse=run.col_sparse_mix,
+                       min_bucket=run.min_bucket,
+                       mesh_shards=run.mesh_shards)
         hist.plan_wall_s += time.perf_counter() - t0p
         b = next(streams)                 # one draw per round
         hist.round_durations.append(p.duration)
@@ -772,8 +909,12 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
         if do_eval:
             t_ev = time.time()
             drain_losses()
-            lg = float(engine.eval_global(fleet.pbuf, alpha, eval_tok,
-                                          eval_lab))
+            if engine is not None:
+                lg = float(engine.eval_global(fleet.pbuf, alpha, eval_tok,
+                                              eval_lab))
+            else:
+                lg = fleet_eval_stacked(cfg, sp, _batch(eval_tok, eval_lab),
+                                        alpha)
             hist.rounds.append(p.t)
             hist.sim_time.append(planner.sim_clock)
             hist.comm_gb.append(planner.comm_bytes / 1e9)
@@ -792,6 +933,9 @@ def run_lm_federation(mechanism, cfg: ModelConfig, run: LMRunConfig,
     pipe.drain()
     hist.drain_wall_s += pipe.drain_wall_s
     drain_losses()
+    if step is not None:
+        fleet.stacked_params = sp         # the oracle's state, written back
+        fleet.stacked_opt = so
     if shd is not None:
         # every row of the fleet on rank 0; each block is freed as its
         # assembled buffer replaces it

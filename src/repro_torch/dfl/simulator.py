@@ -11,7 +11,11 @@ Communication overhead metric = total model-transfer bytes.
 The host planner (``core.planner.HorizonPlanner``) resolves each round's
 control plane; pending rounds go to the device in bucket-uniform chunks
 (``dfl.worker.mega_round_step``), with the flat (N, P) model buffer resident
-on ``device`` and updated in place.  With ``mesh_shards > 1`` the buffer is
+on ``device`` and updated in place.  ``fused_engine=False`` runs the legacy
+per-leaf path instead, one round at a time: the dense Eq. 4 mix of every
+leaf (``core.aggregation.apply_mixing``), minibatches from a numpy stream
+(``_sample_batches``) and masked SGD of all N workers
+(``dfl.worker.local_train``).  With ``mesh_shards > 1`` the buffer is
 row-partitioned over a fleet mesh of that many processes
 (``launch.mesh``, ``sharding.rules.FleetSharding``).  ``checkpoint_every``
 writes atomic snapshots (``checkpoint.io``) that ``resume_from`` continues
@@ -28,7 +32,7 @@ import numpy as np
 import torch
 
 from repro_torch.checkpoint import io as CIO
-from repro_torch.core.aggregation import prefer_cols
+from repro_torch.core.aggregation import apply_mixing, prefer_cols
 from repro_torch.core.planner import (HorizonPlanner, PlannedRound,
                                       bucket_key, chunk_spans, mix_is_train)
 from repro_torch.core.protocol import Mechanism
@@ -80,8 +84,17 @@ class SimConfig:
 
     ``use_kernel`` is the JAX package's deprecated kernel alias: here the
     tensor's device picks the kernel, so it warns and changes nothing.
-    ``fused_engine=False`` (the legacy per-leaf path) is not ported yet and
-    raises ``NotImplementedError`` naming its ROADMAP item.
+
+    ``fused_engine=False`` is the legacy per-leaf path, the JAX package's
+    correctness oracle: a stacked dict of tensors, one round per dispatch,
+    Eq. 4 as the dense (N, N) ``aggregate`` of each leaf, and minibatches
+    drawn from ``np.random.default_rng(seed + 0x5EED)`` on the host exactly
+    as the JAX package draws them, so the two packages train on the same
+    batches.  It shares the fused engine's control-plane rng stream (the
+    control plane is identical), not its batches; it takes no mesh
+    (``mesh_shards > 1`` raises ``ValueError`` when the run starts), and
+    ``scan_horizon``, ``pipeline_depth``, ``col_sparse_mix``,
+    ``fused_local_sgd`` and ``min_bucket`` do not apply to it.
     """
     n_workers: int = 100
     n_rounds: int = 300               # round cap
@@ -183,10 +196,6 @@ class SimConfig:
                 "the tensor's device picks the kernel (CUDA tensors run the "
                 "CUDA kernels, CPU tensors their plain versions)",
                 DeprecationWarning, stacklevel=2)
-        if not self.fused_engine:
-            raise NotImplementedError(
-                "SimConfig: fused_engine=False (the legacy per-leaf path) is "
-                "not ported to PyTorch yet — ROADMAP Queue A item 4")
 
 
 @dataclasses.dataclass
@@ -246,13 +255,14 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
     ``cfg.seed`` (the same rng draws), then the model rows, the planner's
     control state and rng stream, and the history are restored: the
     continued run is the uninterrupted one's on the control plane, and its
-    learning curve too (batches are drawn per (seed, round, worker)).
+    learning curve too (batches are drawn per (seed, round, worker); on
+    the legacy path the snapshot carries the batch stream's state).
 
     ``device`` overrides ``cfg.device`` ("cuda" unless the caller asks for
     "cpu").  ``init`` replaces the port's own initialisation with stacked
-    parameters of the JAX package (numpy arrays with a leading worker axis,
-    ``flat_state.from_reference``); the control plane does not depend on
-    the init.
+    parameters of the JAX package (numpy arrays with a leading worker axis;
+    the buffer's columns are the same); the control plane does not depend
+    on the init.
 
     ``cfg.mesh_shards > 1``: called from a plain process, this spawns the
     mesh's ranks (``launch.mesh.spawn``) and returns rank 0's history;
@@ -269,6 +279,10 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
         raise ValueError("resume_from cannot record a bound log: the "
                          "pre-kill rounds' active/W history is not "
                          "checkpointed")
+    if cfg.mesh_shards > 1 and not cfg.fused_engine:
+        raise ValueError(
+            "mesh_shards > 1 requires the fused engine (fused_engine=True): "
+            "the legacy per-leaf path has no resident buffer to shard")
     dev = resolve_device(device if device is not None else cfg.device,
                          "run_simulation")
     if cfg.mesh_shards > 1 and not MESH.in_group():
@@ -301,29 +315,43 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
     h_i = heterogeneous_compute_times(cfg.n_workers, cfg.base_compute_s, rng,
                                       sigma=cfg.compute_sigma)
 
-    # --- models: the flat buffer is the only model storage ---
+    # --- models: the fused engine's only storage is the flat buffer, the
+    # legacy path's a stacked dict
     if init is None:
         stacked = WK.init_stacked(torch.Generator().manual_seed(cfg.seed),
                                   cfg.n_workers, cfg.dim, cfg.hidden,
                                   data.n_classes)
-        buf, flat_spec = FS.flatten_stacked(stacked)
     else:
-        buf, flat_spec = FS.from_reference(init, "cpu")
+        stacked = {k: torch.tensor(np.asarray(v)) for k, v in init.items()}
+    flat_spec = FS.spec_of(stacked)
+    if init is not None:
         want = FS.spec_of(WK.init_stacked(torch.Generator(), 1, cfg.dim,
                                           cfg.hidden, data.n_classes))
-        if buf.shape[0] != cfg.n_workers or flat_spec.shapes != want.shapes:
+        n_init = len(next(iter(stacked.values())))
+        if (n_init != cfg.n_workers or flat_spec.keys != want.keys
+                or flat_spec.shapes != want.shapes):
             raise ValueError(
-                f"run_simulation: init has {buf.shape[0]} workers of leaf "
-                f"shapes {flat_spec.shapes}; the config needs "
-                f"{cfg.n_workers} of {want.shapes}")
-    fused_sgd = cfg.fused_local_sgd and WK.fused_sgd_supported(flat_spec)
+                f"run_simulation: init has {n_init} workers of leaves "
+                f"{dict(zip(flat_spec.keys, flat_spec.shapes))}; the config "
+                f"needs {cfg.n_workers} of "
+                f"{dict(zip(want.keys, want.shapes))}")
+    fused_sgd = (cfg.fused_engine and cfg.fused_local_sgd
+                 and WK.fused_sgd_supported(flat_spec))
     if fused_sgd and dev.type == "cuda":
         # an MLP the kernel cannot hold is refused here, not in round 1
         FSGD.check_sizes(flat_spec, cfg.local_steps, cfg.batch_size)
-    model_bytes = WK.param_bytes(FS.unravel_row(buf[0], flat_spec)) \
+    model_bytes = WK.param_bytes({k: v[0] for k, v in stacked.items()}) \
         * cfg.model_bytes_scale
     exp_link_time = net.expected_link_time(model_bytes)
-    buf = buf.to(dev) if shd is None else shd.put_rows_padded(buf)
+    buf = batch_rng = None
+    if cfg.fused_engine:
+        buf = FS.flatten_stacked(stacked)[0]
+        buf = buf.to(dev) if shd is None else shd.put_rows_padded(buf)
+        stacked = None
+    else:
+        stacked = {k: v.to(dev) for k, v in stacked.items()}
+        # the JAX package's legacy batch stream, consumed as it consumes it
+        batch_rng = np.random.default_rng(cfg.seed + WK.BATCH_STREAM)
     # the device-resident dataset; a rank holds its own workers' samples,
     # and ``local_of`` maps a sample id to its row there
     local_of, samples = None, slice(None)
@@ -366,21 +394,26 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
         ck = CIO.resolve_snapshot(resume_from)
         arr_tmpl = {k: np.zeros_like(v)
                     for k, v in planner.state_dict()["arrays"].items()}
-        model_tmpl = {"buf": np.zeros((cfg.n_workers, flat_spec.n_params),
-                                      np.float32)}
+        model_tmpl = (stacked if stacked is not None else
+                      {"buf": np.zeros((cfg.n_workers, flat_spec.n_params),
+                                       np.float32)})
         CIO.check_resume_config(ck, CIO.read_checkpoint(ck, ())[1],
                                 run_config)
         model, arrays, extra = CIO.load_checkpoint(ck, model_tmpl, arr_tmpl)
         planner.load_state({"arrays": arrays,
                             "scalars": extra["planner_scalars"],
                             "rng_state": extra["planner_rng"]})
-        restored = torch.from_numpy(model["buf"])
-        buf = (restored.to(dev) if shd is None
-               else shd.put_rows_padded(restored))
+        if stacked is not None:
+            stacked = model
+            batch_rng.bit_generator.state = extra["batch_rng"]
+        else:
+            restored = torch.from_numpy(model["buf"])
+            buf = (restored.to(dev) if shd is None
+                   else shd.put_rows_padded(restored))
         for k, v in extra["history"].items():
             if hasattr(hist, k):
                 setattr(hist, k, v)
-    horizon = cfg.scan_horizon
+    horizon = cfg.scan_horizon if cfg.fused_engine else 1
     pipe = DispatchPipeline(cfg.pipeline_depth)
     on_card = dev.type == "cuda"
 
@@ -389,10 +422,23 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
         t = torch.from_numpy(a)
         return t.pin_memory().to(dev, non_blocking=True) if on_card else t
 
+    def flush_legacy(plans: List[PlannedRound]) -> None:
+        """The legacy path's rounds, one at a time: Eq. 4 on every leaf,
+        then every worker's minibatches and masked Eq. 5 steps."""
+        nonlocal stacked
+        for p in plans:
+            stacked = apply_mixing(p.W, stacked, kernels=cfg.kernels)
+            ids = stage(_sample_batches(parts, cfg, batch_rng))
+            stacked, _ = WK.local_train(stacked, data_x[ids], data_y[ids],
+                                        stage(p.active), lr=cfg.lr,
+                                        local_steps=cfg.local_steps)
+
     def flush(plans: List[PlannedRound]) -> None:
         """Send the pending planned rounds to the model plane (Eq. 4+5):
         consecutive rounds sharing one shape-bucket key go out as one
         mega-round, packed with the uniform-bucket packer."""
+        if stacked is not None:
+            return flush_legacy(plans)
         t0 = time.perf_counter()
         spans = list(chunk_spans(plans, cfg.n_workers,
                                  col_sparse=cfg.col_sparse_mix,
@@ -452,16 +498,21 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
         and rng stream, and the history; called only after a drain, so the
         buffer is round-consistent.  Under a mesh rank 0 gathers the blocks
         (through host memory) and alone writes."""
-        rows = buf if shd is None else shd.gather_rows(buf, device="cpu")
-        if shd is not None and shd.rank != 0:
-            return
+        if stacked is not None:
+            model = stacked
+        else:
+            rows = buf if shd is None else shd.gather_rows(buf, device="cpu")
+            if shd is not None and shd.rank != 0:
+                return
+            model = {"buf": rows.cpu().numpy()}
         snap = planner.state_dict()
         extra = {"round": t, "planner_scalars": snap["scalars"],
                  "planner_rng": snap["rng_state"],
                  "history": hist.to_dict(), "config": run_config}
+        if batch_rng is not None:
+            extra["batch_rng"] = batch_rng.bit_generator.state
         CIO.save_checkpoint(CIO.checkpoint_path(cfg.checkpoint_dir, t),
-                            {"buf": rows.cpu().numpy()},
-                            opt_state=snap["arrays"], extra=extra)
+                            model, opt_state=snap["arrays"], extra=extra)
         CIO.prune_checkpoints(cfg.checkpoint_dir, cfg.checkpoint_keep)
 
     hist.setup_wall_s = time.time() - t_wall
@@ -470,10 +521,12 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
     while planner.t < cfg.n_rounds and not stop:
         t0p = time.perf_counter()
         p = planner.plan_round()
-        # resolve the round's shape-bucket key at plan time (memoized on
-        # the plan): chunk_spans then only does lookups
-        bucket_key(p, cfg.n_workers, col_sparse=cfg.col_sparse_mix,
-                   min_bucket=cfg.min_bucket, mesh_shards=cfg.mesh_shards)
+        if cfg.fused_engine:
+            # resolve the round's shape-bucket key at plan time (memoized
+            # on the plan): chunk_spans then only does lookups
+            bucket_key(p, cfg.n_workers, col_sparse=cfg.col_sparse_mix,
+                       min_bucket=cfg.min_bucket,
+                       mesh_shards=cfg.mesh_shards)
         hist.plan_wall_s += time.perf_counter() - t0p
         t = p.t
         sim_clock = planner.sim_clock
@@ -509,10 +562,15 @@ def run_simulation(mechanism: Mechanism, cfg: SimConfig,
                 pipe.drain()
         if do_eval:
             t_eval = time.time()
-            accg, lossg = WK.evaluate_global_flat(buf, alpha, x_test, y_test,
-                                                  spec=flat_spec, shd=shd)
-            accl, _ = WK.evaluate_stacked_flat(buf, x_test, y_test,
-                                               spec=flat_spec, shd=shd)
+            if stacked is not None:
+                accg, lossg = WK.evaluate_global(stacked, alpha, x_test,
+                                                 y_test)
+                accl, _ = WK.evaluate_stacked(stacked, x_test, y_test)
+            else:
+                accg, lossg = WK.evaluate_global_flat(
+                    buf, alpha, x_test, y_test, spec=flat_spec, shd=shd)
+                accl, _ = WK.evaluate_stacked_flat(buf, x_test, y_test,
+                                                   spec=flat_spec, shd=shd)
             hist.rounds.append(t)
             hist.sim_time.append(sim_clock)
             hist.comm_gb.append(planner.comm_bytes / 1e9)
@@ -546,3 +604,17 @@ def _sim_rank(mechanism, cfg, data, test, record_history_for_bound, device,
     return run_simulation(mechanism, cfg, data, test,
                           record_history_for_bound, device=device, init=init,
                           resume_from=resume_from)
+
+
+def _sample_batches(parts, cfg: SimConfig,
+                    rng: np.random.Generator) -> np.ndarray:
+    """The legacy path's minibatch sample ids, (N, local_steps, batch): one
+    ``rng.choice(parts[i], size=(local_steps, batch))`` per worker, in
+    worker order, every round — the JAX package's ``_sample_batches``
+    draws, whose samples it gathers on the host; here the ids go to the
+    device and the resident dataset is gathered there."""
+    ids = np.empty((cfg.n_workers, cfg.local_steps, cfg.batch_size),
+                   np.int64)
+    for i in range(cfg.n_workers):
+        ids[i] = rng.choice(parts[i], size=(cfg.local_steps, cfg.batch_size))
+    return ids

@@ -113,16 +113,70 @@ def evaluate_stacked_flat(buf: torch.Tensor, x: torch.Tensor,
     all-reduced and divided by the fleet's worker count."""
     if shd is not None:
         buf = buf[:shd.n_home_real]
-    p = FS.unflatten(buf, spec)
-    h = torch.relu(torch.matmul(x, p["w1"]) + p["b1"][:, None])
-    h = torch.relu(torch.bmm(h, p["w2"]) + p["b2"][:, None])
-    logits = torch.bmm(h, p["w3"]) + p["b3"][:, None]        # (N, n, C)
-    acc, loss = _acc_loss(logits, y)
+    acc, loss = _acc_loss(stacked_logits(FS.unflatten(buf, spec), x), y)
     if shd is None:
         return acc.mean(), loss.mean()
     sums = torch.stack([acc.sum(), loss.sum()])
     shd.psum(sums)
     return sums[0] / shd.n_rows, sums[1] / shd.n_rows
+
+
+def stacked_logits(p: Params, x: torch.Tensor) -> torch.Tensor:
+    """Every worker's MLP logits at once: ``p`` stacked (leaves (N, ...)),
+    ``x`` (n, dim) shared or (N, n, dim) per worker -> (N, n, C)."""
+    h = torch.relu(torch.matmul(x, p["w1"]) + p["b1"][:, None])
+    h = torch.relu(torch.bmm(h, p["w2"]) + p["b2"][:, None])
+    return torch.bmm(h, p["w3"]) + p["b3"][:, None]
+
+
+# --------------------------------------------------------------------------- #
+# the legacy per-leaf path (SimConfig(fused_engine=False)): a stacked dict
+# --------------------------------------------------------------------------- #
+
+
+def local_train(stacked: Params, xb: torch.Tensor, yb: torch.Tensor,
+                active: torch.Tensor, lr: float = 0.05,
+                local_steps: int = 1) -> Tuple[Params, torch.Tensor]:
+    """Masked per-worker SGD (paper Eq. 5) over all N workers of a stacked
+    dict (the port of ``repro.dfl.worker.local_train``).
+
+    xb (N, steps, batch, dim), yb (N, steps, batch), active (N,) bool.
+    Every worker takes ``local_steps`` steps of ``w - lr * a * g`` with
+    ``a`` in {0, 1} as f32 (the reference's arithmetic: an inactive row is
+    ``w - 0``, its own value); returns (new stacked params, each worker's
+    mean loss over the steps)."""
+    a = active.to(torch.float32)
+    p = dict(stacked)
+    losses = []
+    for s in range(local_steps):
+        leaves = {k: v.detach().requires_grad_() for k, v in p.items()}
+        with torch.enable_grad():
+            logp = torch.log_softmax(stacked_logits(leaves, xb[:, s]), -1)
+            loss = -torch.take_along_dim(
+                logp, yb[:, s, :, None].long(), dim=-1)[..., 0].mean(-1)
+            # the workers are independent: the sum's gradient is each one's
+            grads = torch.autograd.grad(loss.sum(), list(leaves.values()))
+        p = {k: w.detach() - (lr * a).view((-1,) + (1,) * (w.dim() - 1)) * g
+             for (k, w), g in zip(leaves.items(), grads)}
+        losses.append(loss.detach())
+    return p, torch.stack(losses).mean(0)
+
+
+@torch.no_grad()
+def evaluate_stacked(stacked: Params, x: torch.Tensor, y: torch.Tensor
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Mean test accuracy and loss over the workers' local models."""
+    acc, loss = _acc_loss(stacked_logits(stacked, x), y)
+    return acc.mean(), loss.mean()
+
+
+@torch.no_grad()
+def evaluate_global(stacked: Params, alpha: torch.Tensor, x: torch.Tensor,
+                    y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Eq. 11: accuracy and loss of the data-size-weighted global model
+    ``w_t``, built leaf by leaf (``tensordot(alpha, leaf, 1)``)."""
+    gm = {k: torch.tensordot(alpha, v, dims=1) for k, v in stacked.items()}
+    return _acc_loss(mlp_logits(gm, x), y)
 
 
 # --------------------------------------------------------------------------- #

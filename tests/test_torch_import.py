@@ -6,6 +6,7 @@ import pathlib
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -32,15 +33,17 @@ def test_port_imports_with_jax_absent():
     assert res.returncode == 0, res.stderr
     assert len(mods) >= 15
     # the mesh slice's modules, the baselines, the convergence bound,
-    # checkpointing, the hybrid, vlm and encoder-decoder families are among
-    # those imported and scanned
+    # checkpointing, the hybrid, vlm and encoder-decoder families and the
+    # trainer with its step functions are among those imported and scanned
     assert {"repro_torch.sharding.rules", "repro_torch.launch.mesh",
             "repro_torch.core.baselines", "repro_torch.core.convergence",
             "repro_torch.checkpoint", "repro_torch.checkpoint.io",
             "repro_torch.models.rglru",
             "repro_torch.configs.recurrentgemma_2b",
             "repro_torch.models.encdec", "repro_torch.configs.paligemma_3b",
-            "repro_torch.configs.seamless_m4t_medium"} <= set(mods)
+            "repro_torch.configs.seamless_m4t_medium",
+            "repro_torch.launch.steps", "repro_torch.launch.train"
+            } <= set(mods)
 
 
 @pytest.mark.parametrize("path", sorted(
@@ -78,9 +81,19 @@ def test_run_simulation_defaults_to_the_card():
     (dict(fused_engine=False), 4),
     (dict(mesh_shards=2, fused_engine=False), 4)])
 def test_unported_paths_name_their_roadmap_item(kw, item):
-    from repro_torch.dfl.simulator import SimConfig
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        SimConfig(**kw)
+    """The settings that raised ``NotImplementedError`` naming Queue A
+    ``item`` until it was ported: the legacy per-leaf path now constructs
+    and runs, and with a mesh it raises ``ValueError`` when the run starts,
+    as the JAX package's does."""
+    from repro_torch.core.protocol import DySTop
+    from repro_torch.dfl.simulator import SimConfig, run_simulation
+    cfg = SimConfig(n_workers=4, n_rounds=2, n_samples=400, hidden=8, **kw)
+    if cfg.mesh_shards > 1:
+        with pytest.raises(ValueError, match="fused engine"):
+            run_simulation(DySTop(), cfg, device="cpu")
+    else:
+        h = run_simulation(DySTop(), cfg, device="cpu")
+        assert h.rounds == [2] and np.isfinite(h.acc_global).all()
 
 
 def test_use_kernel_alias_warns_and_changes_nothing():

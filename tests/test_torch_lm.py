@@ -249,8 +249,20 @@ def test_run_lm_federation_defaults_to_the_card():
     (lambda: T_LW.LMRunConfig(resident_fleet=False), 4),
     (lambda: T_LW.LMRunConfig(mesh_shards=2, resident_fleet=False), 4)])
 def test_lm_unported_paths_name_their_roadmap_item(make, item):
-    with pytest.raises(NotImplementedError, match=f"Queue A item {item}"):
-        make()
+    """The settings that raised ``NotImplementedError`` naming Queue A
+    ``item`` until it was ported: the per-call-flatten oracle now
+    constructs and runs, and with a mesh it raises ``ValueError`` when the
+    run starts, as the JAX package's does."""
+    run = dataclasses.replace(make(), n_workers=2, n_rounds=2, batch=1,
+                              seq=8, eval_every=2)
+    if run.mesh_shards > 1:
+        with pytest.raises(ValueError, match="resident engine"):
+            T_LW.run_lm_federation(_mech(), _cfg(), run, device="cpu")
+    else:
+        fleet, hist = T_LW.run_lm_federation(_mech(), _cfg(), run,
+                                             device="cpu")
+        assert hist.rounds == [2] and np.isfinite(hist.loss_global).all()
+        assert fleet.pbuf.shape[0] == 2
 
 
 @pytest.mark.parametrize("arch, feed", [
