@@ -8,7 +8,10 @@ model plane of the vlm and encoder-decoder families at full width, the
 fleet mesh (``mesh_shards`` = 2 and 4 gloo ranks sharing the card) on the
 simulation plane and the LM fleet, the Table-I arena (DySTop against four
 baselines), Theorem 1's bound, snapshots with resume on both planes, the
-legacy per-leaf paths of both planes, and the trainer (``launch/train.py``).
+legacy per-leaf paths of both planes, the trainer (``launch/train.py``) with
+and without activation recomputation, and the pods-as-workers plane
+(``make_dystop_round_step`` with ``dystop_pod_mix``, stacked and on 4 gloo
+ranks).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -305,13 +308,38 @@ Phases 36-39 run the legacy per-leaf paths on both planes and the trainer:
    smoke geometry for 5 steps on the card and on the CPU from the same
    params and batches, losses within 2e-2.
 
+Phases 40-41 run activation recomputation and the pods plane:
+
+40. smollm-135m at full width, ``launch/train.py``'s feed at batch 8 x seq
+   2048, Adam lr 3e-4: 5 steps with ``make_train_step(remat=False)`` and 5
+   with ``remat=True`` from one init drawn on the card, the counters zeroed
+   before each: flash launching 30 times a step without remat and 60 with
+   it (the recompute) and nothing else, the losses bit-equal; ms per step
+   and the peak memory of each (the peak reset between them); flash held
+   on its first call's inputs (8, 9, 2048, 64) and timed;
+41. 4 smollm-135m replicas at full width as DFL workers
+   (``make_dystop_round_step(remat=True, local_steps=2)``, per-pod batch 2
+   x seq 512, 3 rounds; the W of ``examples/multipod_dystop.py``'s
+   coordinator), (a) stacked in this process and (b) on 4 gloo ranks
+   sharing the card (``launch.mesh.spawn``), from the same init and
+   batches, the counters zeroed just before the rounds on each side:
+   ``aggregate`` once a round and flash twice per layer per local step, no
+   other kernel; every pod's row after every round bit-equal between (a)
+   and (b) (two int64 digests of its bits), the metrics too; each identity
+   row unchanged by its mix; losses finite; ``aggregate`` held on the
+   path's own gathered (4, P = 134,515,008) buffer at k = 4 and on each
+   rank's k = 1 call, and timed beside ``matmul`` and its bound; flash held
+   on its first call's inputs (2, 9, 512, 64); the walls per round and the
+   all-gather's host time per round reported.
+
 Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
 ``{"mamba2": ...}``, ``{"serving": ...}``, ``{"mesh": ...}``, ``{"arena":
 ...}``, ``{"convergence": ...}``, ``{"sigkill_resume": ...}``,
 ``{"lm_snapshot": ...}``, ``{"hybrid": ...}``, ``{"moe_train": ...}``,
 ``{"vlm": ...}``, ``{"encdec": ...}``, ``{"legacy": ...}``, ``{"train":
-...}``, ``{"kernels": [...]}`` (the three mesh twins as row 3, then phases
-26, 29, 33, 34, 36, 38 and 39's shapes),
+...}``, ``{"remat": ...}``, ``{"pods": ...}``, ``{"kernels": [...]}`` (the
+three mesh twins as row 3, then phases 26, 29, 33, 34, 36, 41, 38, 39, 40
+and 41's shapes),
 ``{"script": ...}`` and ``{"sim": {...}}`` lines, the card's name and power
 limit and, as the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -2849,6 +2877,433 @@ def train_phase(root: pathlib.Path) -> tuple:
     return out, row
 
 
+# ---- phases 40-41: activation recomputation and the pods plane ------------
+
+# phase 40: one train step's feed at smollm-135m's full width, both modes
+REMAT_RUN = dict(arch="smollm-135m", batch=8, seq=2048, steps=5, lr=3e-4)
+# phase 41: pods as workers, 4 smollm-135m replicas; the coordinator is
+# examples/multipod_dystop.py's (WAA at V = 5 over uniform(1, 3) pod costs,
+# tau_bound 2, every active pod pulling all its peers)
+PODS_RUN = dict(arch="smollm-135m", n_pods=4, local_steps=2, batch=2,
+                seq=512, rounds=3, lr=3e-4, V=5.0, tau_bound=2, seed=0)
+
+
+def remat_phase() -> tuple:
+    """Phase 40: 5 train steps of smollm-135m at full width (batch 8 x seq
+    2048, Adam lr 3e-4, the trainer's feed) with ``make_train_step(remat=
+    False)`` and then ``remat=True``, from one init drawn on the card, the
+    counters zeroed before each: flash launches once per layer per step
+    without remat and twice with it (the recompute), nothing else; the
+    losses bit-equal; ms per step and the peak memory of each (the peak
+    reset between them); flash held on its first call's inputs and
+    timed."""
+    import numpy as np
+    import torch
+    from repro_torch.data.synthetic import lm_batches, make_token_stream
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.train import make_feed
+    from repro_torch.models import registry as R
+    from repro_torch.optim import get_optimizer
+    from repro_torch.tree import tree_map
+    run = REMAT_RUN
+    cfg = R.get_config(run["arch"])
+    dev = torch.device("cuda")
+    b, s, n = run["batch"], run["seq"], run["steps"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    init = R.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    it = lm_batches(make_token_stream(cfg.vocab_size, max(200_000,
+                                                          b * s * 4)), b, s)
+    feed = make_feed(cfg, b, s, dev)
+    batches = [feed(next(it)) for _ in range(n)]
+    kept, calls = {}, Counter()
+    orig = FA.flash_attention
+    modes = {}
+    for remat in (False, True):
+        opt = get_optimizer("adam", run["lr"])
+        params = tree_map(torch.clone, init)
+        state = opt.init(params)
+        step = S.make_train_step(cfg, opt, remat=remat)
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        calls.clear()                 # the kernel row counts the remat run
+        FA.flash_attention = flash_keeper(kept, calls, orig)
+        zero_counters()
+        losses, walls = [], []
+        try:
+            for batch in batches:
+                t0 = time.perf_counter()
+                params, state, m = step(params, state, batch)
+                losses.append(float(m["loss"]))
+                walls.append(time.perf_counter() - t0)
+        finally:
+            FA.flash_attention = orig
+        torch.cuda.synchronize()
+        launches = read_counters()
+        peak = torch.cuda.max_memory_allocated()
+        want = cfg.n_layers * n * (2 if remat else 1)
+        check(launches["flash_attention"] == want
+              and sum(launches.values()) == want,
+              f"remat={remat}: launches {launches}, expected flash {want} "
+              f"and nothing else")
+        check(np.isfinite(losses).all(), f"remat={remat}: losses {losses}")
+        modes["remat" if remat else "plain"] = {
+            "losses": losses, "ms_per_step": statistics.median(walls[1:])
+            * 1e3, "first_step_s": walls[0], "launches": launches,
+            "flash_per_step": launches["flash_attention"] / n,
+            "max_memory_allocated_bytes": peak}
+        del params, state, m, step
+        print(f"remat={remat}: {modes['remat' if remat else 'plain']}",
+              flush=True)
+    plain, rem = modes["plain"]["losses"], modes["remat"]["losses"]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(rem, plain))
+    check(rem == plain, f"remat losses {rem} are not the bits of remat="
+          f"False's {plain} (largest relative gap {rel})")
+    del init, batches
+    gc.collect()
+    torch.cuda.empty_cache()
+    check(len(kept) == 1, f"remat flash shapes {sorted(kept)}")
+    key, ins = next(iter(kept.items()))
+    check(key[1] == (b, cfg.n_heads, s, cfg.resolved_head_dim),
+          f"remat flash shape {key}")
+    row = flash_path_row(key, ins, calls[key], "trainer at seq 2048, remat "
+                         "(phase 40)")
+    row["launches_plain"] = modes["plain"]["launches"]["flash_attention"]
+    row["launches_remat"] = modes["remat"]["launches"]["flash_attention"]
+    out = {"config": f"{run['arch']} get_config() (30 layers, nothing cut), "
+                     f"launch/train.py's feed, batch {b}, seq {s}, adam lr "
+                     f"{run['lr']}, {n} steps a mode from one init",
+           **modes, "losses_bit_equal": True,
+           "peak_ratio": (modes["remat"]["max_memory_allocated_bytes"]
+                          / modes["plain"]["max_memory_allocated_bytes"])}
+    print(f"remat: losses bit-equal over {n} steps; peak "
+          f"{modes['plain']['max_memory_allocated_bytes'] / 1e9:.2f} GB -> "
+          f"{modes['remat']['max_memory_allocated_bytes'] / 1e9:.2f} GB, "
+          f"{modes['plain']['ms_per_step']:.1f} -> "
+          f"{modes['remat']['ms_per_step']:.1f} ms a step", flush=True)
+    return out, row
+
+
+def pods_plan() -> dict:
+    """Phase 41's host side, shared by both forms: the coordinator's mixing
+    matrices, each pod's batches (numpy) and each round's active pods."""
+    import numpy as np
+    from repro_torch.core.aggregation import mixing_matrix
+    from repro_torch.core.staleness import StalenessState
+    from repro_torch.core.waa import worker_activation
+    from repro_torch.data.synthetic import lm_batches, make_token_stream
+    from repro_torch.models import registry as R
+    run = PODS_RUN
+    n = run["n_pods"]
+    cfg = R.get_config(run["arch"])
+    rng = np.random.default_rng(run["seed"])
+    st = StalenessState.create(n, tau_bound=run["tau_bound"])
+    ws, actives = [], []
+    for _ in range(run["rounds"]):
+        active, _ = worker_activation(st, rng.uniform(1.0, 3.0, n),
+                                      V=run["V"])
+        links = np.zeros((n, n), bool)
+        for i in np.flatnonzero(active):
+            links[i] = True
+            links[i, i] = False
+        ws.append(mixing_matrix(active, links, np.ones(n)))
+        actives.append(np.flatnonzero(active).tolist())
+        st.advance(active)
+    it = lm_batches(make_token_stream(cfg.vocab_size, 200_000), run["batch"],
+                    run["seq"], seed=run["seed"])
+    shape = (run["rounds"], n, run["local_steps"])
+    draws = [next(it) for _ in range(int(np.prod(shape)))]
+    batches = {k: np.stack([d[k] for d in draws]).reshape(
+        shape + draws[0][k].shape) for k in draws[0]}
+    return {"W": ws, "active": actives, "batches": batches}
+
+
+def row_digest(tree, i: int) -> list:
+    """Two wrapping int64 sums over the bits of pod ``i``'s leaves, in
+    ``tree_paths`` order (plain and position-weighted): equal rows give
+    equal digests, and a differing bit changes them."""
+    import torch
+    from repro_torch.tree import tree_paths
+    s1 = s2 = 0
+    off = 0
+    for _, leaf in tree_paths(tree):
+        x = leaf[i].reshape(-1)
+        bits = x.view(torch.int16 if x.element_size() == 2
+                      else torch.int32).long()
+        pos = torch.arange(off, off + bits.numel(), dtype=torch.int64,
+                           device=bits.device).mul_(2654435761).add_(1)
+        s1 += int(bits.sum())
+        s2 += int(bits.mul_(pos).sum())
+        off += x.numel()
+    return [s1 % 2 ** 64, s2 % 2 ** 64]
+
+
+def pods_drive(plan: dict, mesh, lo: int, hi: int) -> dict:
+    """Drive phase 41's rounds on pods ``[lo, hi)`` of this process (all
+    of them on one process, one on a rank): the pods drawn on the card
+    from their own seeds, the counters zeroed just before the rounds and
+    read just after; identity rows checked unchanged by each mix; the
+    gather timed (host); flash's and ``aggregate``'s first call inputs
+    kept.  Returns the walls, the counters, the metrics and each pod's
+    digest after every round."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core import protocol as PROTO
+    from repro_torch.kernels import aggregate as AGG
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import steps as S
+    from repro_torch.models import registry as R
+    from repro_torch.optim import get_optimizer
+    from repro_torch.sharding.rules import FleetSharding
+    from repro_torch.tree import tree_map, tree_paths
+    run = PODS_RUN
+    cfg = R.get_config(run["arch"])
+    dev = torch.device("cuda")
+    pods = [R.init_params(cfg, torch.Generator(dev).manual_seed(i))
+            for i in range(lo, hi)]
+    params = tree_map(lambda *ls: torch.stack(ls), *pods)
+    del pods
+    opt = get_optimizer("adam", run["lr"])
+    state = S.init_pod_states(opt, params)
+    gathers, identity_checked = [], []
+    orig_mix = PROTO.dystop_pod_mix
+    orig_gather = FleetSharding.all_gather_rows
+    orig_fa, orig_agg = FA.flash_attention, AGG.aggregate
+    kept, calls, agg_kept = {}, Counter(), {}
+
+    def timed_gather(shd, X):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        orig_gather(shd, X)
+        torch.cuda.synchronize()
+        gathers.append(time.perf_counter() - t0)
+        return X
+
+    def checked_mix(tree, W, mesh_=None):
+        out = orig_mix(tree, W, mesh_)
+        for j in range(hi - lo):
+            if W[lo + j, lo + j] == 1.0:          # an identity row
+                check(all(torch.equal(a[j], c[j]) for (_, a), (_, c) in
+                          zip(tree_paths(out), tree_paths(tree))),
+                      f"pods: the mix changed identity-row pod {lo + j}")
+                identity_checked.append(lo + j)
+        return out
+
+    def rec_agg(W, X, col_ids=None, **kw):
+        if not agg_kept:
+            agg_kept["W"], agg_kept["X"] = W.clone(), X.clone()
+        return orig_agg(W, X, col_ids, **kw)
+
+    PROTO.dystop_pod_mix = checked_mix
+    FleetSharding.all_gather_rows = timed_gather
+    FA.flash_attention = flash_keeper(kept, calls, orig_fa)
+    AGG.aggregate = rec_agg
+    try:
+        step = S.make_dystop_round_step(cfg, opt, mesh, remat=True,
+                                        local_steps=run["local_steps"])
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counters()
+        walls, metrics, digests = [], [], []
+        for r in range(run["rounds"]):
+            batch = {k: torch.from_numpy(v[r, lo:hi]).to(dev)
+                     for k, v in plan["batches"].items()}
+            torch.cuda.synchronize()
+            if mesh is not None:
+                dist.barrier()
+            t0 = time.perf_counter()
+            params, state, m = step(params, state, batch, plan["W"][r])
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            metrics.append({k: float(v) for k, v in m.items()})
+            digests.append([row_digest(params, j) for j in range(hi - lo)])
+        launches = read_counters()
+    finally:
+        PROTO.dystop_pod_mix = orig_mix
+        FleetSharding.all_gather_rows = orig_gather
+        FA.flash_attention, AGG.aggregate = orig_fa, orig_agg
+    check(all(np.isfinite(list(m.values())).all() for m in metrics),
+          f"pods: metrics not finite: {metrics}")
+    out = {"walls_s": walls, "gathers_s": gathers, "launches": launches,
+           "metrics": metrics, "digests": digests,
+           "identity_rows_checked": identity_checked,
+           "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+           "flash_kept": kept, "flash_calls": calls, "agg_kept": agg_kept}
+    del params, state
+    return out
+
+
+def pods_rank(plan: dict) -> list:
+    """One gloo rank of phase 41(b): its pod's rounds, then ``aggregate``
+    held on its own first call's inputs (k = 1, the gathered (n_pods, P)
+    buffer) against the plain version; every rank's results, gathered (no
+    CUDA tensor leaves the rank)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.core.protocol import pod_sharding
+    from repro_torch.kernels import aggregate as AGG
+    from repro_torch.launch.mesh import make_fleet_mesh
+    mesh = make_fleet_mesh(dist.get_world_size(), "cuda")
+    lo, hi = pod_sharding(mesh, PODS_RUN["n_pods"]).home
+    out = pods_drive(plan, mesh, lo, hi)
+    # does gloo all-gather CUDA tensors itself? (the pod mix goes through
+    # host memory either way)
+    probe = torch.full((4,), float(mesh.rank), device="cuda")
+    parts = [torch.empty_like(probe) for _ in range(mesh.n_shards)]
+    try:
+        dist.all_gather(parts, probe)
+        out["gloo_cuda_all_gather"] = (
+            "ok" if all(bool((p == r).all()) for r, p in enumerate(parts))
+            else "wrong values")
+    except RuntimeError as e:
+        out["gloo_cuda_all_gather"] = str(e).splitlines()[0][:200]
+    agg = out.pop("agg_kept")
+    del out["flash_kept"], out["flash_calls"]
+    got = AGG.aggregate(agg["W"], agg["X"])
+    want = AGG.aggregate_plain(agg["W"], agg["X"])
+    gap = (got - want).abs()
+    err = float(gap.max())
+    check(bool(torch.isfinite(got).all())
+          and bool((gap <= 1e-5 + 1e-5 * want.abs()).all()),
+          f"pods rank {mesh.rank}: aggregate on its own inputs, |err| {err}")
+    out["aggregate"] = {"k": agg["W"].shape[0], "n_in": agg["W"].shape[1],
+                        "P": agg["X"].shape[1], "max_abs_err": err}
+    del agg, got, want, gap
+    torch.cuda.empty_cache()
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
+def pod_agg_row(W, X, launches, label: str) -> dict:
+    """``aggregate`` at a pod-mix shape on the path's own gathered buffer:
+    held to its plain version (f32 atol and rtol 1e-5) and timed beside it,
+    ``matmul`` on the same rows and its bound (median of 10 launches)."""
+    import torch
+    from repro_torch.kernels import aggregate as AGG
+    got = AGG.aggregate(W, X)
+    want = AGG.aggregate_plain(W, X)
+    gap = (got - want).abs()
+    err = float(gap.max())
+    check(bool(torch.isfinite(got).all())
+          and bool((gap <= 1e-5 + 1e-5 * want.abs()).all()),
+          f"aggregate at the {label} shape: |err| {err}")
+    del got, want, gap
+    k, n = W.shape
+    b_ms, b_by = agg_cost(k, W.cpu(), None, X.shape[1], n)
+    row = {"label": label, "k": k, "n_in": n, "P": X.shape[1],
+           "launches": launches, "max_abs_err": err,
+           "ms": device_ms(lambda: AGG.aggregate(W, X), reps=10),
+           "plain_ms": device_ms(lambda: AGG.aggregate_plain(W, X), reps=10),
+           "library_ms": device_ms(lambda: torch.matmul(W, X), reps=10),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"aggregate, {label}: {row}", flush=True)
+    return row
+
+
+def pods_phase() -> tuple:
+    """Phase 41: ``make_dystop_round_step`` with ``dystop_pod_mix`` on 4
+    smollm-135m replicas at full width (``PODS_RUN``: local_steps 2, remat
+    on, per-pod batch 2 x seq 512, 3 rounds, Adam; the W of
+    ``pods_plan``'s coordinator), (a) in this process (the stacked form)
+    and (b) as 4 gloo ranks sharing the card (``launch.mesh.spawn``), from
+    the same init and batches.  Checks: aggregate once a round and flash
+    twice per layer per local step (remat) and nothing else, on each
+    side; every pod's row after every round bit-equal between (a) and (b)
+    (``row_digest``), and the metrics; the identity rows unchanged by each
+    mix; losses finite; ``aggregate`` held on the path's own inputs (the
+    stacked k = 4 and the ranks' k = 1 calls) and timed, flash too."""
+    import torch
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.models import registry as R
+    run = PODS_RUN
+    n, steps, rounds = run["n_pods"], run["local_steps"], run["rounds"]
+    cfg = R.get_config(run["arch"])
+    plan = pods_plan()
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    a = pods_drive(plan, None, 0, n)
+    stacked_wall = time.perf_counter() - t0
+    fa_per_pod = cfg.n_layers * 2 * steps * rounds
+    check(a["launches"]["aggregate"] == rounds
+          and a["launches"]["flash_attention"] == n * fa_per_pod
+          and sum(a["launches"].values()) == rounds + n * fa_per_pod,
+          f"pods (stacked): launches {a['launches']}, expected aggregate "
+          f"{rounds} and flash {n * fa_per_pod}")
+    identity = [i for W in plan["W"] for i in range(n) if W[i, i] == 1.0]
+    check(a["identity_rows_checked"] == identity and identity,
+          f"pods: identity rows {a['identity_rows_checked']} against the "
+          f"plan's {identity}")
+    W4, X = a["agg_kept"]["W"], a["agg_kept"]["X"]
+    check(tuple(W4.shape) == (n, n), f"pods: stacked W {tuple(W4.shape)}")
+    agg_rows = [pod_agg_row(W4, X, a["launches"]["aggregate"],
+                            f"pods plane, stacked (k = {n})"),
+                pod_agg_row(W4[:1].contiguous(), X, None,
+                            "pods plane, one rank's row (k = 1)")]
+    check(len(a["flash_kept"]) == 1, f"pods flash shapes "
+          f"{sorted(a['flash_kept'])}")
+    key, ins = next(iter(a["flash_kept"].items()))
+    flash = flash_path_row(key, ins, a["flash_calls"][key],
+                           "pods plane, remat (phase 41)")
+    del W4, X, ins
+    a.pop("agg_kept"), a.pop("flash_kept"), a.pop("flash_calls")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = MESH.spawn(pods_rank, n, plan, device="cuda")
+    spawn_wall = time.perf_counter() - t0
+    for i, rk in enumerate(ranks):
+        check(rk["launches"]["aggregate"] == rounds
+              and rk["launches"]["flash_attention"] == fa_per_pod
+              and sum(rk["launches"].values()) == rounds + fa_per_pod,
+              f"pods rank {i}: launches {rk['launches']}")
+        for r in range(rounds):
+            check(rk["digests"][r] == [a["digests"][r][i]],
+                  f"pods: pod {i}'s row after round {r} differs between the "
+                  f"stacked and the rank form")
+        check(rk["metrics"] == a["metrics"], f"pods rank {i}: metrics "
+              f"{rk['metrics']} against the stacked {a['metrics']}")
+    check(sorted(i for rk in ranks for i in rk["identity_rows_checked"])
+          == sorted(identity), "pods: the ranks' identity rows")
+    agg_rows[1]["launches"] = [rk["launches"]["aggregate"] for rk in ranks]
+    agg_rows[1]["ranks_max_abs_err"] = [rk["aggregate"]["max_abs_err"]
+                                        for rk in ranks]
+    out = {"config": f"{n} x {run['arch']} get_config() (30 layers, nothing "
+                     f"cut), make_dystop_round_step(remat=True, local_steps="
+                     f"{steps}), per-pod batch {run['batch']} x seq "
+                     f"{run['seq']}, adam lr {run['lr']}, {rounds} rounds; "
+                     f"coordinator: WAA V={run['V']} over uniform(1, 3) pod "
+                     f"costs, tau_bound {run['tau_bound']}, links to every "
+                     f"peer (examples/multipod_dystop.py)",
+           "P": agg_rows[0]["P"], "active": plan["active"],
+           "W": [w.tolist() for w in plan["W"]],
+           "stacked": {"wall_s": stacked_wall,
+                       "round_walls_s": a["walls_s"],
+                       "launches": a["launches"], "metrics": a["metrics"],
+                       "max_memory_allocated_bytes":
+                           a["max_memory_allocated_bytes"]},
+           "ranks": {"spawn_wall_s": spawn_wall,
+                     "round_walls_s": [rk["walls_s"] for rk in ranks],
+                     "gather_s": [rk["gathers_s"] for rk in ranks],
+                     "launches": [rk["launches"] for rk in ranks],
+                     "max_memory_allocated_bytes": [
+                         rk["max_memory_allocated_bytes"] for rk in ranks],
+                     "gloo_cuda_all_gather": ranks[0][
+                         "gloo_cuda_all_gather"]},
+           "rows_bit_equal": True, "metrics_bit_equal": True,
+           "identity_rows_unchanged": identity}
+    print(f"pods: stacked {a['walls_s']} s a round, ranks "
+          f"{out['ranks']['round_walls_s']}, gathers "
+          f"{out['ranks']['gather_s']}; rows bit-equal for {rounds} rounds; "
+          f"losses {[m['loss'] for m in a['metrics']]}", flush=True)
+    return out, agg_rows, flash
+
+
 def main() -> int:
     t_script = time.perf_counter()
     # phase 26's fleet all but fills the card: with fixed-size segments the
@@ -3741,10 +4196,21 @@ def main() -> int:
     legacy_phases_s = time.perf_counter() - t_leg
     print(f"phases 36-39: {legacy_phases_s:.1f} s", flush=True)
 
-    new_flash = list(ed_rows.values()) + [legacy_flash, train_flash]
+    # ---- 40. activation recomputation on the trainer at full width ---------
+    t_pods = time.perf_counter()
+    remat, remat_flash = remat_phase()
+
+    # ---- 41. the pods plane: stacked and 4 gloo ranks ----------------------
+    pods, pods_agg_rows, pods_flash = pods_phase()
+    pods_phases_s = time.perf_counter() - t_pods
+    print(f"phases 40-41: {pods_phases_s:.1f} s", flush=True)
+
+    new_flash = list(ed_rows.values()) + [legacy_flash, train_flash,
+                                          remat_flash, pods_flash]
     flash_ulps = max([flash_ulps] + [r["max_bf16_ulps"] for r in new_flash])
     flash_err = max([flash_err] + [r["max_abs_err"] for r in new_flash])
-    agg_err = max([agg_err] + [r["max_abs_err"] for r in legacy_agg_rows])
+    agg_err = max([agg_err] + [r["max_abs_err"] for r in legacy_agg_rows
+                               + pods_agg_rows])
 
     top_agg, top_sgd = agg_rows[0], sgd_rows[0]
     kernels = [
@@ -3860,7 +4326,16 @@ def main() -> int:
             **{k: r[k] for k in ("launches", "max_abs_err", "k", "n_in", "P",
                                  "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
-    for r in (legacy_flash, train_flash):
+    for r in pods_agg_rows:
+        kernels.append({
+            "name": "aggregate", "path": r["label"] + " (phase 41)",
+            "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/aggregate.cu",
+            "replaces": "src/repro/kernels/aggregate.py:220",
+            **{k: r[k] for k in ("launches", "max_abs_err", "k", "n_in", "P",
+                                 "ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")}})
+    for r in (legacy_flash, train_flash, remat_flash, pods_flash):
         kernels.append({
             "name": "flash_attention", "path": r["label"], "route": "cuda",
             "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -3959,11 +4434,15 @@ def main() -> int:
     print(json.dumps({"legacy": {**legacy, "aggregate": legacy_agg_rows,
                                  "flash": legacy_flash}}))
     print(json.dumps({"train": {**train, "flash": train_flash}}))
+    print(json.dumps({"remat": {**remat, "flash": remat_flash}}))
+    print(json.dumps({"pods": {**pods, "aggregate": pods_agg_rows,
+                               "flash": pods_flash}}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"script": {"wall_s": time.perf_counter() - t_script,
                                  "phases_26_29_wall_s": new_phases_s,
                                  "phases_30_35_wall_s": stub_phases_s,
-                                 "phases_36_39_wall_s": legacy_phases_s}}))
+                                 "phases_36_39_wall_s": legacy_phases_s,
+                                 "phases_40_41_wall_s": pods_phases_s}}))
     print(json.dumps({"sim": {
         "config": "SimConfig() defaults, DySTop(V=10.0, t_thre=20)",
         "rounds": hist.rounds[-1], "evals": len(hist.rounds),

@@ -11,6 +11,9 @@ replay H rounds of decisions ahead of the device so the engine can execute
 them as one mega-round; any rng a mechanism needs must come from ``ctx.rng``
 (the planner threads the shared host generator through in round order,
 keeping trajectories bit-for-bit reproducible).
+
+``dystop_pod_mix`` is the data plane of pods as workers: Eq. 4 across whole
+model replicas (``launch/steps.py::make_dystop_round_step`` trains them).
 """
 from __future__ import annotations
 
@@ -18,10 +21,13 @@ import dataclasses
 from typing import Optional
 
 import numpy as np
+import torch
 
 from repro_torch.core import ptca as PT
 from repro_torch.core import waa as WA
 from repro_torch.core.staleness import StalenessState
+from repro_torch.kernels import aggregate as AGG
+from repro_torch.tree import tree_from_paths, tree_paths
 
 
 @dataclasses.dataclass
@@ -105,3 +111,83 @@ class DySTop(Mechanism):
                       phase1_priority=(self._phase1_priority(ctx)
                                        if ctx.t <= self.t_thre else None))
         return RoundDecision(active=active, links=top.links)
+
+
+# --------------------------------------------------------------------------- #
+# production plane: pods as DFL workers
+# --------------------------------------------------------------------------- #
+
+def pod_sharding(mesh, n_pods: int):
+    """The pod axis of ``n_pods`` partitioned over ``mesh``
+    (``sharding.rules.FleetSharding``; its ``home`` is this rank's
+    contiguous block of pods), or None without a mesh or on a mesh of one
+    shard (this process holds every pod).  The shard count must divide
+    ``n_pods``."""
+    if mesh is None or mesh.n_shards == 1:
+        return None
+    from repro_torch.sharding.rules import FleetSharding
+    shd = FleetSharding(mesh, n_pods)
+    if shd.pad:
+        raise ValueError(f"pods as workers: {mesh.n_shards} ranks do not "
+                         f"divide {n_pods} pods")
+    return shd
+
+
+def dystop_pod_mix(params, W, mesh=None):
+    """Weighted cross-pod aggregation (Eq. 4 with pods as DFL workers).
+
+    ``params`` is a tree whose leaves carry a leading pod axis: all
+    ``n_pods`` replicas without a mesh (``mesh=None`` or a
+    ``launch.mesh.FleetMesh`` of one shard: the JAX package's stacked
+    tree), else this rank's contiguous block of ``n_pods / S`` pods
+    (``pod_sharding``; one pod a rank is the reference's ``shard_map``
+    view).
+    ``W`` is the (n_pods, n_pods) row-stochastic mixing matrix from the
+    host coordinator (numpy or a tensor).  Returns a new tree of the same
+    leaves, each in its own dtype (``tree_from_paths``: empty subtrees are
+    dropped, as a train step's output drops them).
+
+    Each pod's leaves are flattened, in ``tree_paths`` order, into one f32
+    row of a (n_pods, P) buffer (bf16 to f32 is exact); the rows of the
+    other ranks are all-gathered into it
+    (``FleetSharding.all_gather_rows``; no collective on one process), and
+    the block's rows of W are applied by the Eq. 4 ``aggregate`` kernel
+    (``Y = W[lo:hi] @ X``), then cast back to each leaf's dtype.  That is
+    one collective and one launch a round where the JAX package
+    makes one of each per leaf.  Every row is mixed, identity rows too, as
+    in the JAX package: an identity row gives its pod back unchanged
+    unless a peer holds an inf or a NaN.  ``aggregate`` sums over the pods
+    in order for each output on its own, so the stacked and the rank forms
+    give the same bits."""
+    paths = tree_paths(params)
+    leaves = [leaf for _, leaf in paths]
+    block = leaves[0].shape[0]
+    n_pods = block * (1 if mesh is None else mesh.n_shards)
+    shd = pod_sharding(mesh, n_pods)
+    lo, hi = (0, n_pods) if shd is None else shd.home
+    W = torch.as_tensor(W, dtype=torch.float32)
+    if tuple(W.shape) != (n_pods, n_pods):
+        raise ValueError(f"dystop_pod_mix: W is {tuple(W.shape)}, "
+                         f"expected ({n_pods}, {n_pods})")
+    dev = leaves[0].device
+    sizes = [leaf[0].numel() for leaf in leaves]
+    X = torch.empty((n_pods, sum(sizes)), dtype=torch.float32, device=dev)
+    offsets, off = {}, 0
+    for (path, leaf), n in zip(paths, sizes):
+        if leaf.shape[0] != block:
+            raise ValueError(f"dystop_pod_mix: leaf {path} has "
+                             f"{leaf.shape[0]} pods, expected {block}")
+        X[lo:hi, off:off + n].copy_(leaf.reshape(block, n))
+        offsets[path] = (off, n)
+        off += n
+    if shd is not None:
+        shd.all_gather_rows(X)
+    Y = AGG.aggregate(W[lo:hi].to(dev).contiguous(), X)
+    del X
+    out = []
+    for path, leaf in paths:
+        o, n = offsets[path]
+        new = torch.empty(leaf.shape, dtype=leaf.dtype, device=dev)
+        new.view(block, n).copy_(Y[:, o:o + n])
+        out.append((path, new))
+    return tree_from_paths(out)

@@ -51,37 +51,53 @@ def _positions(b: int, s: int, device) -> torch.Tensor:
         b, s)
 
 
-def encode(cfg: ModelConfig, params: Params,
-           frames: torch.Tensor) -> torch.Tensor:
-    """frames (B, F, D) stub embeddings -> encoder output (B, F, D)."""
+def _encoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                   positions: torch.Tensor) -> torch.Tensor:
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y, _ = L.multihead_attention(cfg, lp["attn"], h, L.AttnSpec(causal=False),
+                                 positions)
+    return T._ffn(cfg, lp, x, y)[0]
+
+
+def _decoder_layer(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+                   positions: torch.Tensor, enc: torch.Tensor
+                   ) -> torch.Tensor:
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y, _ = L.multihead_attention(cfg, lp["attn"], h, L.AttnSpec(causal=True),
+                                 positions)
+    x, h = T.residual_norm(cfg, x, y, lp["ln_x"])
+    y, _ = L.multihead_attention(cfg, lp["xattn"], h,
+                                 L.AttnSpec(causal=False), positions,
+                                 kv_x=enc)
+    return T._ffn(cfg, lp, x, y)[0]
+
+
+def encode(cfg: ModelConfig, params: Params, frames: torch.Tensor,
+           remat: bool = False) -> torch.Tensor:
+    """frames (B, F, D) stub embeddings -> encoder output (B, F, D);
+    ``remat`` checkpoints each layer (``transformer.remat_call``), as the
+    JAX package does."""
     b, f, _ = frames.shape
     x = frames.to(L._dtype(cfg))
     positions = _positions(b, f, x.device)
-    spec = L.AttnSpec(causal=False)
     for lp in T._group_views(params["encoder"], cfg.n_enc_layers):
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y, _ = L.multihead_attention(cfg, lp["attn"], h, spec, positions)
-        x, _ = T._ffn(cfg, lp, x, y)
+        x = T.remat_call(remat, _encoder_layer, cfg, lp, x, positions)
     return L.rms_norm(x, params["enc_norm"], cfg.norm_eps)
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            frames: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+            frames: torch.Tensor, remat: bool = False
+            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) target text; frames (B, F, D) stub audio embeddings ->
-    (logits (B, S, V_pad) f32, a zero aux term)."""
-    enc = encode(cfg, params, frames)
+    (logits (B, S, V_pad) f32, a zero aux term); ``remat`` checkpoints each
+    encoder and decoder layer."""
+    enc = encode(cfg, params, frames, remat=remat)
     b, s = tokens.shape
     table = params["embed"]["table"]
     x = T._embed(cfg, table, tokens)
     positions = _positions(b, s, x.device)
-    spec, cross = L.AttnSpec(causal=True), L.AttnSpec(causal=False)
     for lp in T._group_views(params["decoder"], cfg.n_layers):
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
-        y, _ = L.multihead_attention(cfg, lp["attn"], h, spec, positions)
-        x, h = T.residual_norm(cfg, x, y, lp["ln_x"])
-        y, _ = L.multihead_attention(cfg, lp["xattn"], h, cross, positions,
-                                     kv_x=enc)
-        x, _ = T._ffn(cfg, lp, x, y)
+        x = T.remat_call(remat, _decoder_layer, cfg, lp, x, positions, enc)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return (L.lm_logits(cfg, table, x),
             torch.zeros((), dtype=torch.float32, device=x.device))

@@ -8,16 +8,20 @@ package resolves: the decoder families through ``models/transformer.py``
 and the encoder-decoder family through ``models/encdec.py`` (its stub
 frames, ``batch["frames"]``).  ``compute_loss`` returns the cross-entropy
 plus ``router_aux_weight`` times the MoE load-balance term (0 for a family
-without MoE), as the JAX package's does.
+without MoE), as the JAX package's does.  The shape helpers
+(``batch_specs``, ``abstract_decode_cache``, ``supported_shapes``,
+``long_context_capable``) answer without allocating: their tensors live on
+the ``meta`` device.  ``abstract_params`` and the logical-axis trees are
+not ported (the sharding item of the roadmap).
 """
 from __future__ import annotations
 
 import importlib
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
-from repro_torch.configs.base import ModelConfig, ShapeSpec
+from repro_torch.configs.base import INPUT_SHAPES, ModelConfig, ShapeSpec
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
@@ -54,14 +58,44 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator]) -> Params:
 
 
 def _logits(cfg: ModelConfig, params: Params,
-            batch: Dict[str, torch.Tensor]
+            batch: Dict[str, torch.Tensor], remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
     if is_encdec(cfg):
-        return E.forward(cfg, params, batch["tokens"], batch["frames"])
+        return E.forward(cfg, params, batch["tokens"], batch["frames"],
+                         remat=remat)
     if has_prefix(cfg):
         return T.forward(cfg, params, batch["tokens"],
-                         prefix_embeds=batch["prefix_embeds"])
-    return T.forward(cfg, params, batch["tokens"])
+                         prefix_embeds=batch["prefix_embeds"], remat=remat)
+    return T.forward(cfg, params, batch["tokens"], remat=remat)
+
+
+def batch_specs(cfg: ModelConfig, shape: ShapeSpec
+                ) -> Dict[str, torch.Tensor]:
+    """Stand-ins for every model input of ``shape``: tensors on the
+    ``meta`` device (shapes and dtypes, no storage).  Train and prefill
+    take tokens, labels and a loss mask, plus the family's stub feed (a
+    vlm's text is ``S - n_prefix_tokens`` long behind its prefix
+    embeddings; enc-dec takes ``frames_for(cfg, S)`` frames); decode takes
+    one token per row."""
+    b, s = shape.global_batch, shape.seq_len
+
+    def meta(dims, dtype):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.mode not in ("train", "prefill"):
+        return {"token": meta((b, 1), torch.int32)}
+    dt = L._dtype(cfg)
+    if has_prefix(cfg):
+        s -= cfg.n_prefix_tokens
+    out = {"tokens": meta((b, s), torch.int32),
+           "labels": meta((b, s), torch.int32),
+           "loss_mask": meta((b, s), torch.float32)}
+    if is_encdec(cfg):
+        out["frames"] = meta((b, frames_for(cfg, s), cfg.d_model), dt)
+    if has_prefix(cfg):
+        out["prefix_embeds"] = meta((b, cfg.n_prefix_tokens, cfg.d_model),
+                                    dt)
+    return out
 
 
 def forward_logits(cfg: ModelConfig, params: Params,
@@ -72,11 +106,13 @@ def forward_logits(cfg: ModelConfig, params: Params,
 
 
 def compute_loss(cfg: ModelConfig, params: Params,
-                 batch: Dict[str, torch.Tensor]
+                 batch: Dict[str, torch.Tensor], remat: bool = False
                  ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(ce + router_aux_weight * moe_aux, {"ce", "moe_aux"}); a vlm's
-    cross-entropy is over the text positions, past ``n_prefix_tokens``."""
-    logits, aux = _logits(cfg, params, batch)
+    cross-entropy is over the text positions, past ``n_prefix_tokens``.
+    ``remat`` recomputes activations in the backward pass (the same
+    values; see ``transformer.forward``)."""
+    logits, aux = _logits(cfg, params, batch, remat)
     if has_prefix(cfg):
         logits = logits[:, cfg.n_prefix_tokens:]
     ce = L.softmax_cross_entropy(logits, batch["labels"],
@@ -94,6 +130,12 @@ def init_decode_cache(cfg: ModelConfig, shape: ShapeSpec,
         return E.init_cache(cfg, shape.global_batch, shape.seq_len,
                             frames_for(cfg, shape.seq_len), device)
     return T.init_cache(cfg, shape.global_batch, shape.seq_len, device)
+
+
+def abstract_decode_cache(cfg: ModelConfig, shape: ShapeSpec) -> Params:
+    """``init_decode_cache`` on the ``meta`` device: the cache's tree,
+    shapes and dtypes, no storage."""
+    return init_decode_cache(cfg, shape, "meta")
 
 
 def serve_step(cfg: ModelConfig, params: Params, cache: Params,
@@ -118,3 +160,19 @@ def get_config(arch_id: str) -> ModelConfig:
 
 def get_smoke_config(arch_id: str) -> ModelConfig:
     return _module(arch_id).get_smoke_config()
+
+
+def long_context_capable(cfg: ModelConfig) -> bool:
+    """May this arch run the long_500k shape? (a sub-quadratic path:
+    the ssm and hybrid families, or dense attention with a
+    sliding-window/local variant)"""
+    if cfg.family in ("ssm", "hybrid"):
+        return True
+    return cfg.attn_pattern in ("local", "local_global")
+
+
+def supported_shapes(cfg: ModelConfig) -> List[ShapeSpec]:
+    """The ``INPUT_SHAPES`` this arch runs, in their order (long_500k only
+    where ``long_context_capable``)."""
+    return [spec for name, spec in INPUT_SHAPES.items()
+            if name != "long_500k" or long_context_capable(cfg)]

@@ -11,7 +11,9 @@ axis.  The layout is what makes the flat column order match the
 reference's.  The ``hybrid`` family's RG-LRU blocks are in
 ``models/rglru.py``; the ``vlm`` family (a prefix-LM) puts stub prefix
 embeddings in front of the tokens, attended bidirectionally among
-themselves (``forward(prefix_embeds=)``).
+themselves (``forward(prefix_embeds=)``).  ``forward(remat=True)`` recomputes
+each group of ``blocks`` in the backward pass (``remat_call``), as the JAX
+package wraps its scanned ``block_fn`` in ``jax.checkpoint``.
 
 Decoding keeps the JAX package's cache layout (``init_cache``: ``pos``, then
 per layer a KV ring with absolute ``k_pos`` or a recurrent (SSM or RG-LRU)
@@ -27,6 +29,7 @@ from __future__ import annotations
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
@@ -309,9 +312,24 @@ def _layers(cfg: ModelConfig, tree) -> List[Tuple[Params, str]]:
     return out
 
 
+def remat_call(remat: bool, fn, *args):
+    """``fn(*args)``; with ``remat``, under non-reentrant activation
+    checkpointing: autograd records the same graph, but the tensors ``fn``
+    saves are dropped and recomputed by running ``fn`` again when the
+    backward pass first needs them (so the kernels in ``fn`` launch twice,
+    and the gradients are the same bits).  No forward of the zoo draws
+    random numbers, so the RNG state is not stashed for the recompute
+    (``preserve_rng_state=False``: no get and set of the CPU and CUDA
+    generators per call)."""
+    if not remat:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                             preserve_rng_state=False)
+
+
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
-            prefix_embeds: Optional[torch.Tensor] = None
-            ) -> Tuple[torch.Tensor, torch.Tensor]:
+            prefix_embeds: Optional[torch.Tensor] = None,
+            remat: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens (B, S) [+ prefix embeddings (B, P, D), the vlm family's stub
     frontend] -> (logits (B, P + S, V_pad) f32, moe_aux f32).
 
@@ -319,7 +337,10 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     prefix is cast to the activation dtype and goes in front, unscaled,
     and its P positions attend to each other both ways.  Empty
     ``prelude``/``coda`` lists and a missing ``blocks`` may be absent from
-    ``params`` (a tree rebuilt from a flat row drops empty subtrees)."""
+    ``params`` (a tree rebuilt from a flat row drops empty subtrees).
+    ``remat`` checkpoints each group of ``blocks`` (its ``pattern(cfg)``
+    layers, carrying x and the aux sum); the prelude and coda layers are
+    not checkpointed, as in the JAX package."""
     table = params["embed"]["table"]
     x = _embed(cfg, table, tokens)
     prefix_len = 0
@@ -330,10 +351,22 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     positions = torch.arange(s, dtype=torch.int32,
                              device=x.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for lp, kind in _layers(cfg, params):
-        x, a = apply_layer(cfg, lp, kind, x, positions, prefix_len)
-        if a is not None:
-            aux = aux + a
+
+    def run(layers, x, aux):
+        for lp, kind in layers:
+            x, a = apply_layer(cfg, lp, kind, x, positions, prefix_len)
+            if a is not None:
+                aux = aux + a
+        return x, aux
+
+    n_pre, n_grp, _ = structure(cfg)
+    per = len(pattern(cfg))
+    layers = _layers(cfg, params)
+    x, aux = run(layers[:n_pre], x, aux)
+    for g in range(n_grp):
+        lo = n_pre + g * per
+        x, aux = remat_call(remat, run, layers[lo:lo + per], x, aux)
+    x, aux = run(layers[n_pre + n_grp * per:], x, aux)
 
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     return L.lm_logits(cfg, table, x), aux

@@ -108,6 +108,13 @@ class FleetSharding:
             dist.all_reduce(piece)
         return x
 
+    @property
+    def _via(self) -> torch.device:
+        """Where a gather's pieces travel: the rank's card over NCCL, host
+        memory over gloo."""
+        return (self.device if self.mesh.backend == "nccl"
+                else torch.device("cpu"))
+
     def gather_rows(self, block: torch.Tensor,
                     device=None) -> Optional[torch.Tensor]:
         """Assemble the ``(n_rows, C)`` buffer from every rank's ``(block,
@@ -115,8 +122,7 @@ class FleetSharding:
         others None; the padding rows are left out.  Gloo gathers through
         host memory, in column pieces of at most 2^26 elements per rank."""
         rows, cols = block.shape
-        via = (self.device if self.mesh.backend == "nccl"
-               else torch.device("cpu"))
+        via = self._via
         dest = self.device if device is None else torch.device(device)
         full = (torch.empty((self.n_rows, cols), dtype=block.dtype,
                             device=dest) if self.rank == 0 else None)
@@ -129,4 +135,21 @@ class FleetSharding:
             if full is not None:
                 full[:, c0:c0 + step] = torch.cat(parts)[:self.n_rows].to(
                     dest)
+        return full
+
+    def all_gather_rows(self, full: torch.Tensor) -> torch.Tensor:
+        """Fill the other ranks' rows of the ``(n_pad, C)`` buffer ``full``,
+        in place, from each rank's home rows (``dist.all_gather``: every
+        rank gets every row).  Gloo gathers through host memory, in column
+        pieces of at most 2^26 elements per rank; returns ``full``."""
+        lo, hi = self.home
+        step = max(1, _CHUNK // self.block)
+        for c0 in range(0, full.shape[1], step):
+            piece = full[lo:hi, c0:c0 + step].to(self._via).contiguous()
+            parts = [torch.empty_like(piece) for _ in range(self.n_shards)]
+            dist.all_gather(parts, piece)
+            for r, part in enumerate(parts):
+                if r != self.rank:
+                    full[r * self.block:(r + 1) * self.block,
+                         c0:c0 + step].copy_(part)
         return full

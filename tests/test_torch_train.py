@@ -61,7 +61,7 @@ def test_train_step_matches_reference(optimizer):
                                                                    3e-4)
     r_state, t_state = r_opt.init(r_params), t_opt.init(t_params)
     r_step = jax.jit(R_S.make_train_step(r_cfg, r_opt, remat=False))
-    t_step = T_S.make_train_step(t_cfg, t_opt)
+    t_step = T_S.make_train_step(t_cfg, t_opt, remat=False)
     batches = r_lm_batches(r_stream(r_cfg.vocab_size, 20_000), 2, 32)
     for _ in range(3):
         b = next(batches)
@@ -79,12 +79,6 @@ def test_train_step_matches_reference(optimizer):
         assert t_m["grad_norm"].dtype == torch.float32
     for (_, got), want in zip(tree_paths(t_params), jax.tree.leaves(r_params)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
-
-
-def test_remat_names_its_roadmap_item():
-    cfg = T_R.get_smoke_config("smollm-135m")
-    with pytest.raises(NotImplementedError, match="Queue A item 8\\(b\\)"):
-        T_S.make_train_step(cfg, get_optimizer("adam"), remat=True)
 
 
 def test_prefill_and_serve_steps():
