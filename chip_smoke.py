@@ -9,9 +9,10 @@ fleet mesh (``mesh_shards`` = 2 and 4 gloo ranks sharing the card) on the
 simulation plane and the LM fleet, the Table-I arena (DySTop against four
 baselines), Theorem 1's bound, snapshots with resume on both planes, the
 legacy per-leaf paths of both planes, the trainer (``launch/train.py``) with
-and without activation recomputation, and the pods-as-workers plane
+and without activation recomputation, the pods-as-workers plane
 (``make_dystop_round_step`` with ``dystop_pod_mix``, stacked and on 4 gloo
-ranks).
+ranks), and a counted train step and prefill (``launch/steps.py``'s
+artifacts against ``launch/loopcost.py``'s count).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -332,19 +333,39 @@ Phases 40-41 run activation recomputation and the pods plane:
    on its first call's inputs (2, 9, 512, 64); the walls per round and the
    all-gather's host time per round reported.
 
+Phase 42 counts a step against its time (``counted_phase``):
+
+42. (a) ``build_train_artifacts`` for smollm-135m at full width (batch 8 x
+   seq 2048, Adam lr 3e-4, remat) and (b) ``build_prefill_artifacts`` for
+   mamba2-2.7b at 8 of 64 layers (batch 4 x seq 2048), both on
+   ``make_host_mesh("cuda")``, params drawn on the card: each step counted
+   once on ``meta`` (``launch.loopcost.step_costs``), then run 4 times on
+   the card with the counters zeroed (the median ms of the last 3; each
+   kernel launched exactly its counted calls a step times 4, flash 60 and
+   ``ssd_chunk`` 8 a step, nothing else), then counted once on the card:
+   the card's FLOPs, bytes, peak, argument bytes and kernel calls must
+   equal ``meta``'s integer for integer.  Reports model FLOPs, ``mfu`` =
+   model FLOPs / (step s x 989 TFLOP/s), the roofline share max(t_compute,
+   t_memory) / step s (``launch.analysis.extract_roofline``), and the
+   counted activation peak against ``max_memory_allocated`` above the
+   arguments, which must agree within ``PEAK_FACTOR``; flash and
+   ``ssd_chunk`` held on their first call's inputs against their plain
+   versions and timed beside their bounds.
+
 Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
 ``{"mamba2": ...}``, ``{"serving": ...}``, ``{"mesh": ...}``, ``{"arena":
 ...}``, ``{"convergence": ...}``, ``{"sigkill_resume": ...}``,
 ``{"lm_snapshot": ...}``, ``{"hybrid": ...}``, ``{"moe_train": ...}``,
 ``{"vlm": ...}``, ``{"encdec": ...}``, ``{"legacy": ...}``, ``{"train":
-...}``, ``{"remat": ...}``, ``{"pods": ...}``, ``{"kernels": [...]}`` (the
-three mesh twins as row 3, then phases 26, 29, 33, 34, 36, 41, 38, 39, 40
-and 41's shapes),
+...}``, ``{"remat": ...}``, ``{"pods": ...}``, ``{"counted": ...}``,
+``{"kernels": [...]}`` (the three mesh twins as row 3, then phases 26, 29,
+33, 34, 36, 41, 42, 38, 39, 40 and 41's shapes),
 ``{"script": ...}`` and ``{"sim": {...}}`` lines, the card's name and power
 limit and, as the last line, ``{"ok": true, "device": {...}}``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
 import json
@@ -356,9 +377,6 @@ import sys
 import time
 from collections import Counter
 
-HBM_BYTES_PER_S = 3.35e12          # H100 SXM device memory (data sheet)
-F32_FLOPS = 67e12                  # H100 SXM f32 outside the tensor cores
-BF16_FLOPS = 989e12                # H100 SXM bf16 tensor cores, dense
 N_WORKERS, REPS = 100, 60
 MESH_SHARDS = (2, 4)               # gloo ranks sharing the one card
 MESH_ACC_TOL = 2e-2                # acc_global, sim mesh vs unsharded
@@ -469,12 +487,6 @@ def all_finite(buf) -> bool:
     return all(bool(torch.isfinite(row).all()) for row in buf)
 
 
-def bound(nbytes: float, flops: float, flops_per_s: float = F32_FLOPS):
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / flops_per_s * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
-
-
 def agg_case(gen, k: int, u: int, n: int, col: bool, dev):
     """Inputs like the packer's: W rows (k, u) with the padding columns
     zeroed and their col_ids repeating 0 (u < N), or col_ids = arange(N)."""
@@ -496,14 +508,6 @@ def agg_case(gen, k: int, u: int, n: int, col: bool, dev):
     return W.to(dev), cid
 
 
-def agg_cost(k, W, col_ids, p, n):
-    distinct = n if col_ids is None else len(set(col_ids.tolist()))
-    nz_cols = int((W != 0).any(0).sum())
-    nbytes = (distinct * p + k * p + W.numel()) * 4 \
-        + (0 if col_ids is None else col_ids.numel() * 4)
-    return bound(nbytes, 2.0 * k * nz_cols * p)
-
-
 def sgd_case(gen, k, steps, batch, dim, classes, dev, p):
     import torch
     buf = torch.randn((k, p), generator=gen) * 0.2
@@ -522,20 +526,6 @@ def mlp_stacked(d: int, h: int, g: int, c: int):
             "w2": torch.zeros((1, h, g)), "w3": torch.zeros((1, g, c))}
 
 
-def sgd_cost(spec, active, k, steps, batch, with_losses):
-    shp = dict(zip(spec.keys, spec.shapes))
-    (d, h), (_, g), (_, c) = shp["w1"], shp["w2"], shp["w3"]
-    n_act = int((active != 0).sum())
-    per_fwd = 2.0 * batch * (d * h + h * g + g * c)
-    per_step = 2.0 * batch * (2 * d * h + 3 * h * g + 3 * g * c)
-    flops = steps * (n_act * per_step
-                     + (k - n_act) * (per_fwd if with_losses else 0.0))
-    needs_batch = n_act if not with_losses else k
-    nbytes = (2 * k * spec.n_params + 2 * k
-              + needs_batch * steps * batch * (d + 1)) * 4
-    return bound(nbytes, flops)
-
-
 def flash_mask(s: int, causal: bool, window):
     import torch
     rows = torch.arange(s)[:, None]
@@ -546,18 +536,6 @@ def flash_mask(s: int, causal: bool, window):
     if window is not None:
         mask &= (rows - cols) < window
     return mask
-
-
-def flash_cost(q, k, causal, window):
-    """Bytes: q, k, v (as passed, kv heads once) read and o written once.
-    Flops: 4 D per unmasked (row, column) pair, over the peak for the
-    inputs' type."""
-    import torch
-    b, h, s, d = q.shape
-    pairs = int(flash_mask(s, causal, window).sum())
-    nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
-    rate = BF16_FLOPS if q.dtype == torch.bfloat16 else F32_FLOPS
-    return bound(nbytes, 4.0 * d * pairs * b * h, rate)
 
 
 def bf16_ulps(got, want, f32_atol: float = 1e-6) -> float:
@@ -580,6 +558,7 @@ def flash_long_row(gen, dev, label, b, h, hk, s, d, softcap, window):
     softcap as its score_mod, causal and window as its block mask, and the
     kv heads grouped in place.  The library call's own distance from the
     plain version is reported."""
+    from repro_torch.launch import loopcost as LC
     import torch
     from repro_torch.kernels import flash_attention as FA
     bf = torch.bfloat16
@@ -592,7 +571,7 @@ def flash_long_row(gen, dev, label, b, h, hk, s, d, softcap, window):
     ulps = bf16_ulps(got.float(), want.float())
     check(bool(torch.isfinite(got).all()) and ulps <= 2.0,
           f"flash {label}: {ulps} bf16 ulps")
-    b_ms, b_by = flash_cost(q, k, True, window)
+    b_ms, b_by = LC.flash_cost(q, k, True, window).bound()
     row = {"label": label, "shape": [b, h, s, d], "kv_heads": hk,
            "dtype": str(bf), "causal": True, "window": window,
            "softcap": softcap, "max_bf16_ulps": ulps,
@@ -646,15 +625,6 @@ def ssd_case(gen, g, h, q, n, p, rate, dev):
             xb.to(dev).transpose(1, 2))
 
 
-def ssd_cost(g, h, q, n, p):
-    """Bytes: Bc, Cc, cum_la and xbar read once, y written once (f32).
-    Flops: for each causal (q, t) pair of each chunk, 2 N for the score and
-    H * 2 P for the products, over the f32 CUDA-core peak."""
-    pairs = q * (q + 1) // 2
-    nbytes = 4 * (2 * g * q * n + g * h * q + 2 * g * h * q * p)
-    return bound(nbytes, float(g) * pairs * (2 * n + 2 * h * p))
-
-
 def recorder(counter, agg, fa=None):
     """Wrappers around the kernels' entry points that count each call's
     shape (the kernels' own launch counters stay the only proof of
@@ -692,14 +662,15 @@ def lm_aggregate_row(gen, shapes, launches: int, buf, label: str) -> dict:
     (N, P) buffer at the path's commonest mix shape (f32 atol and rtol
     1e-5), and time it beside its plain version, ``matmul`` and its bound
     (median of 10 launches: each moves GBs)."""
+    from repro_torch.launch import loopcost as LC
     import torch
     from repro_torch.kernels import aggregate as AGG
     (_, k, u, col), count = max(((s, c) for s, c in shapes.items()
                                  if s[0] == "aggregate"), key=lambda sc: sc[1])
     n, p = buf.shape
     W, cid = agg_case(gen, k, u, n, col, buf.device)
-    b_ms, b_by = agg_cost(k, W.cpu(), None if cid is None else cid.cpu(), p,
-                          n)
+    b_ms, b_by = LC.agg_cost(W.cpu(), None if cid is None else cid.cpu(),
+                             p, n).bound()
     got = AGG.aggregate(W, buf, cid)
     want = AGG.aggregate_plain(W, buf, cid)
     torch.cuda.synchronize()
@@ -805,12 +776,6 @@ def router_tie_logits(t: int, e: int, dev):
     rows[3] = -200.0 - 0.5 * (e - torch.arange(e, dtype=torch.float32))
     rows[3, e // 3] = 50.0
     return rows.repeat((t + 3) // 4, 1)[:t].contiguous().to(dev)
-
-
-def router_cost(t: int, e: int, k: int):
-    """Bytes: the f32 logits read once, gates (f32) and ids (i32) written
-    once; its compares are far below any unit's rate."""
-    return bound(4.0 * t * e + 8.0 * t * k, 0.0)
 
 
 def serve_requests(cfg, n: int, seed: int, prompt_len=(4, 12),
@@ -952,6 +917,7 @@ def mesh_twin_rows(shd, W, X, block, seg, cid, reps: int, label: str) -> dict:
     the per-shard launch (ranks in turn), the all-reduce and the whole twin
     (ranks together), beside the unsharded kernel, its plain version and
     ``matmul`` (rank 0)."""
+    from repro_torch.launch import loopcost as LC
     import torch
     from repro_torch.kernels import aggregate as AGG
     dev = shd.device
@@ -962,7 +928,7 @@ def mesh_twin_rows(shd, W, X, block, seg, cid, reps: int, label: str) -> dict:
         Wb = W[:, shd.home[0]:shd.home[1]].contiguous()
         shard_in = (Wb, block)
         part = torch.zeros((k, p), dtype=torch.float32, device=dev)
-        b_ms, b_by = agg_cost(k, Wb.cpu(), None, p, shd.block)
+        b_ms, b_by = LC.agg_cost(Wb.cpu(), None, p, shd.block).bound()
         W_full = W[:, :shd.n_rows].contiguous()
     else:
         twin = lambda: AGG.aggregate_rows_cols_sharded(W, cid, block, shd,
@@ -972,8 +938,8 @@ def mesh_twin_rows(shd, W, X, block, seg, cid, reps: int, label: str) -> dict:
         part = torch.zeros((cid.shape[0], p), dtype=torch.float32,
                            device=dev)
         b_ms, b_by = ((None, None) if hi == lo else
-                      agg_cost(hi - lo, W[lo:hi].cpu(), None, p,
-                               cid.shape[0]))
+                      LC.agg_cost(W[lo:hi].cpu(), None, p,
+                                  cid.shape[0]).bound())
         W_full = W
     got = twin()
     want = AGG.aggregate_plain(W_full[lo:hi], X, cid)
@@ -1009,6 +975,7 @@ def mesh_twins(plan: dict) -> dict:
     """Phase 19 on this rank: every twin against its plain version at the
     sim path's buckets (and at S = 2 on the LM fleet's buffer), timed at
     the main path's commonest shapes."""
+    from repro_torch.launch import loopcost as LC
     import numpy as np
     import torch
     from repro_torch.dfl import flat_state as FS
@@ -1097,8 +1064,8 @@ def mesh_twins(plan: dict) -> dict:
         "shard_ms": rank_serial(lambda: device_ms(
             lambda: FSGD.fused_sgd_sharded(*args), reps=reps)
             if b > a else None),
-        "shard_bound": sgd_cost(spec, active[a:b], b - a, steps, batch,
-                                False) if b > a else None,
+        "shard_bound": LC.sgd_cost(spec, active[a:b], b - a, steps,
+                                   batch, False).bound() if b > a else None,
         **rank_serial(lambda: {
             "unsharded_ms": device_ms(lambda: FSGD.fused_sgd(
                 buf, xb, yb, active, spec, lr, False), reps=reps),
@@ -1527,6 +1494,7 @@ def arena_kernel_rows(shapes_by_mech: dict, gen, spec, dev) -> tuple:
     commonest ``aggregate`` shapes and its commonest ``fused_sgd`` shape,
     each shape once): held against the plain version, then timed beside it,
     the library call and the bound, as phase 4 times the sim cell's."""
+    from repro_torch.launch import loopcost as LC
     import torch
     from repro_torch.kernels import aggregate as AGG
     from repro_torch.kernels import fused_sgd as FSGD
@@ -1550,8 +1518,8 @@ def arena_kernel_rows(shapes_by_mech: dict, gen, spec, dev) -> tuple:
             err = float((got - want).abs().max())
             torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
             lib_cid = None if cid is None else cid.long()
-            b_ms, b_by = agg_cost(k, W.cpu(),
-                                  None if cid is None else cid.cpu(), p, n)
+            b_ms, b_by = LC.agg_cost(
+                W.cpu(), None if cid is None else cid.cpu(), p, n).bound()
             agg_rows.append({
                 "label": f"arena {name}", "N": n, "k": k, "u": u,
                 "col_sparse": col, "launches": count, "max_abs_err": err,
@@ -1576,7 +1544,8 @@ def arena_kernel_rows(shapes_by_mech: dict, gen, spec, dev) -> tuple:
             err = max(float((out - ref).abs().max()),
                       float((loss - ref_loss).abs().max()))
             torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
-            b_ms, b_by = sgd_cost(spec, active, k, steps, batch, with_losses)
+            b_ms, b_by = LC.sgd_cost(spec, active, k, steps, batch,
+                                    with_losses).bound()
             sgd_rows.append({
                 "label": f"arena {name}", "k": k, "with_losses": with_losses,
                 "launches": count, "max_abs_err": err,
@@ -2206,6 +2175,7 @@ def moe_train_phase(gen, dev, mech) -> tuple:
     against ``moe_router_plain`` under autograd, and its forward (the
     kernel) and backward (the plain version) timed beside their bounds.
     Returns (the phase's record, the kernel-table row)."""
+    from repro_torch.launch import loopcost as LC
     import torch
     from repro_torch.configs import grok_1_314b
     from repro_torch.kernels import aggregate as AGG
@@ -2257,10 +2227,10 @@ def moe_train_phase(gen, dev, mech) -> tuple:
         x.requires_grad_()
         w = torch.randn((t_, k_), generator=gen).to(dev)
         live = K.moe_router_diff(x, k_)[0]
-        fb_ms, fb_by = router_cost(t_, e_, k_)
+        fb_ms, fb_by = LC.router_cost(t_, e_, k_).bound()
         # the backward reads the logits and the gates' gradient, writes the
         # logits' gradient
-        bb_ms, bb_by = bound(8.0 * t_ * e_ + 4.0 * t_ * k_, 0.0)
+        bb_ms, bb_by = LC.Cost(8.0 * t_ * e_ + 4.0 * t_ * k_, 0.0).bound()
         rows.append({
             "shape": [t_, e_, k_], "max_abs_err": e1, "grad_max_abs_err": e2,
             "ms": device_ms(lambda: MR.moe_router(xd, k_)),
@@ -2441,6 +2411,7 @@ def flash_path_row(key, ins, calls: int, label: str) -> dict:
     """Hold flash on the inputs of a path's first call at ``key`` against
     its plain version (2 bf16 ulps) and time it beside the plain version,
     its bound and ``scaled_dot_product_attention`` (kv heads repeated)."""
+    from repro_torch.launch import loopcost as LC
     import torch
     from repro_torch.kernels import flash_attention as FA
     q, k, v = ins
@@ -2452,7 +2423,7 @@ def flash_path_row(key, ins, calls: int, label: str) -> dict:
     ulps = bf16_ulps(got.float(), want.float())
     check(bool(torch.isfinite(got).all()) and ulps <= 2.0,
           f"flash {label} on the path's own inputs: {ulps} bf16 ulps")
-    b_ms, b_by = flash_cost(q, k, causal, window)
+    b_ms, b_by = LC.flash_cost(q, k, causal, window).bound()
     h = shape[1]
     k_rep = k.repeat_interleave(h // hk, dim=1)
     v_rep = v.repeat_interleave(h // hk, dim=1)
@@ -2556,6 +2527,7 @@ def legacy_sim_phase(fused_hist, dev) -> tuple:
     launch; then ``aggregate`` is held on each per-leaf shape's first-call
     inputs against ``aggregate_plain`` (f32 atol and rtol 1e-5) and timed
     beside its bound, its plain version and ``matmul``."""
+    from repro_torch.launch import loopcost as LC
     import numpy as np
     import torch
     from repro_torch.core.protocol import DySTop
@@ -2613,7 +2585,7 @@ def legacy_sim_phase(fused_hist, dev) -> tuple:
               f"aggregate at the legacy shape {w_shape} x {x_shape}: "
               f"|err| {err} past f32 atol and rtol 1e-5")
         k, n = w_shape
-        b_ms, b_by = agg_cost(k, W.cpu(), None, x_shape[1], n)
+        b_ms, b_by = LC.agg_cost(W.cpu(), None, x_shape[1], n).bound()
         rows.append({
             "label": "legacy sim, per leaf", "k": k, "n_in": n,
             "P": x_shape[1], "col_sparse": False,
@@ -3183,6 +3155,7 @@ def pod_agg_row(W, X, launches, label: str) -> dict:
     """``aggregate`` at a pod-mix shape on the path's own gathered buffer:
     held to its plain version (f32 atol and rtol 1e-5) and timed beside it,
     ``matmul`` on the same rows and its bound (median of 10 launches)."""
+    from repro_torch.launch import loopcost as LC
     import torch
     from repro_torch.kernels import aggregate as AGG
     got = AGG.aggregate(W, X)
@@ -3194,7 +3167,7 @@ def pod_agg_row(W, X, launches, label: str) -> dict:
           f"aggregate at the {label} shape: |err| {err}")
     del got, want, gap
     k, n = W.shape
-    b_ms, b_by = agg_cost(k, W.cpu(), None, X.shape[1], n)
+    b_ms, b_by = LC.agg_cost(W.cpu(), None, X.shape[1], n).bound()
     row = {"label": label, "k": k, "n_in": n, "P": X.shape[1],
            "launches": launches, "max_abs_err": err,
            "ms": device_ms(lambda: AGG.aggregate(W, X), reps=10),
@@ -3304,6 +3277,229 @@ def pods_phase() -> tuple:
     return out, agg_rows, flash
 
 
+# phase 42: a counted step against its measured time.  The counter's peak
+# (launch.loopcost) and the allocator's must agree within PEAK_FACTOR: the
+# allocator rounds blocks up and holds the kernels' and cuBLAS's own
+# scratch, which no op's output shows
+COUNTED_TRAIN = dict(arch="smollm-135m", batch=8, seq=2048, lr=3e-4, steps=4)
+COUNTED_PREFILL = dict(arch="mamba2-2.7b", n_layers=8, batch=4, seq=2048,
+                       steps=4)
+PEAK_FACTOR = 1.5
+
+
+def ssd_keeper(kept: dict, calls: Counter, ssd):
+    """A wrapper around ``ssd_chunk`` that counts the calls of each shape
+    and keeps a copy of the inputs of each shape's first call (the
+    kernel's own counter stays the only proof of launches)."""
+    def rec_ssd(Bc, Cc, cum_la, xbar):
+        key = ("ssd_chunk", tuple(xbar.shape), Bc.shape[2])
+        calls[key] += 1
+        if key not in kept:
+            kept[key] = tuple(t.detach().clone() for t in (Bc, Cc, cum_la,
+                                                           xbar))
+        return ssd(Bc, Cc, cum_la, xbar)
+    return rec_ssd
+
+
+@contextlib.contextmanager
+def swapped(module, name: str, wrapper):
+    """``module.name`` replaced by ``wrapper(module.name)`` for the
+    extent."""
+    orig = getattr(module, name)
+    setattr(module, name, wrapper(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+def counted_step(cfg, shape, mode: str, art, args, steps: int, smi: str,
+                 during) -> dict:
+    """Phase 42's readings of one path: ``steps`` runs of ``art``'s step on
+    the card's ``args`` inside the context ``during()`` (each the same
+    state's step; the median ms of all but the first), then one more under
+    ``launch.loopcost.step_costs``, whose integers must equal the same
+    step's count on ``meta``; the model FLOPs, ``mfu``, the roofline share
+    and the counter's activation peak against the allocator's."""
+    import torch
+    from repro_torch.launch import analysis as A
+    from repro_torch.launch import loopcost as LC
+    from repro_torch.launch.mesh import PEAK_FLOPS_BF16, make_host_mesh
+    from repro_torch.tree import tree_paths
+    for i, (a, m_) in enumerate(zip(args, art.abstract_args, strict=True)):
+        for (path, t), (_, m) in zip(tree_paths(a), tree_paths(m_),
+                                     strict=True):
+            check((t.shape, t.dtype) == (m.shape, m.dtype),
+                  f"{cfg.arch_id} {mode}: argument {i} {path} is "
+                  f"{tuple(t.shape)} {t.dtype} on the card, "
+                  f"{tuple(m.shape)} {m.dtype} on meta")
+    t0 = time.perf_counter()
+    meta = LC.step_costs(art.step_fn, *art.abstract_args)
+    meta_s = time.perf_counter() - t0
+    walls = []
+    with during():
+        zero_counters()
+        for _ in range(steps):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = art.step_fn(*args)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            del out
+        launches = read_counters()
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    card = LC.step_costs(art.step_fn, *args)
+    torch.cuda.synchronize()
+    count_s = time.perf_counter() - t0
+    alloc_act = torch.cuda.max_memory_allocated() - before
+    ints = lambda c: {"dot_flops": c.dot_flops, "io_bytes": c.io_bytes,
+                      "peak_bytes": c.peak_bytes, "arg_bytes": c.arg_bytes,
+                      "kernel_calls": dict(c.kernel_calls),
+                      "collectives": dict(c.collectives)}
+    check(ints(card) == ints(meta), f"{cfg.arch_id} {mode}: the card's "
+          f"count {ints(card)} is not meta's {ints(meta)}")
+    for name, n in launches.items():
+        want = card.kernel_calls.get(name, 0) * steps
+        check(n == want, f"{cfg.arch_id} {mode}: {name} launched {n} times "
+              f"in {steps} steps, the counter saw {want // steps} a step")
+    check(all(launches[k] > 0 for k in card.kernel_calls),
+          f"{cfg.arch_id} {mode}: launches {launches}")
+    step_s = statistics.median(walls[1:])
+    roof = A.extract_roofline(cfg, shape, "host", make_host_mesh("cuda"),
+                              mode, card, art)
+    ratio = card.activation_peak_bytes / alloc_act
+    check(1 / PEAK_FACTOR <= ratio <= PEAK_FACTOR,
+          f"{cfg.arch_id} {mode}: counted activation peak "
+          f"{card.activation_peak_bytes} B against the allocator's "
+          f"{alloc_act} B (ratio {ratio:.3f}, allowed factor {PEAK_FACTOR})")
+    row = {"card": smi, "mode": mode, "steps": steps,
+           "ms_per_step": step_s * 1e3, "step_walls_s": walls,
+           "launches": launches, "counted": ints(card),
+           "card_count_equals_meta": True, "meta_count_s": meta_s,
+           "card_count_s": count_s,
+           "model_flops": roof.model_flops,
+           "mfu": roof.model_flops / (step_s * PEAK_FLOPS_BF16),
+           "t_compute_ms": roof.t_compute * 1e3,
+           "t_memory_ms": roof.t_memory * 1e3,
+           "roofline_share": max(roof.t_compute, roof.t_memory) / step_s,
+           "bottleneck": roof.bottleneck,
+           "useful_flops_ratio": roof.useful_flops_ratio,
+           "counted_activation_peak_bytes": card.activation_peak_bytes,
+           "allocator_activation_peak_bytes": alloc_act,
+           "peak_ratio": ratio, "peak_factor_allowed": PEAK_FACTOR}
+    print(f"counted {cfg.arch_id} {mode}: {step_s * 1e3:.1f} ms a step, "
+          f"mfu {row['mfu']:.4f}, roofline share "
+          f"{row['roofline_share']:.4f} ({roof.bottleneck}), card count = "
+          f"meta count, activation peak counted/allocator {ratio:.3f} "
+          f"(factor {PEAK_FACTOR} allowed) [{smi}]", flush=True)
+    return row
+
+
+def counted_phase(smi: str) -> tuple:
+    """Phase 42: (a) ``build_train_artifacts`` for smollm-135m at full width
+    (batch 8 x seq 2048, Adam lr 3e-4, remat) on the host mesh and (b)
+    ``build_prefill_artifacts`` for mamba2-2.7b at 8 of 64 layers (batch 4
+    x seq 2048), each materialised on the card and read by
+    ``counted_step``; flash and ``ssd_chunk`` held on the inputs of their
+    first call on these paths against their plain versions and timed."""
+    import numpy as np
+    import torch
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.data.synthetic import lm_batches, make_token_stream
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.kernels import ssd_chunk as SC
+    from repro_torch.launch import loopcost as LC
+    from repro_torch.launch import steps as S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.train import make_feed
+    from repro_torch.models import registry as R
+    from repro_torch.optim import get_optimizer
+    dev = torch.device("cuda")
+    mesh = make_host_mesh("cuda")
+    out, rows = {}, []
+
+    def feed(cfg, b, s):
+        it = lm_batches(make_token_stream(cfg.vocab_size, max(200_000,
+                                                              b * s * 4)),
+                        b, s)
+        return make_feed(cfg, b, s, dev)(next(it))
+
+    # (a) the train step
+    run = COUNTED_TRAIN
+    cfg = R.get_config(run["arch"])
+    b, s = run["batch"], run["seq"]
+    shape = ShapeSpec("counted_train", s, b, "train")
+    opt = get_optimizer("adam", run["lr"])
+    art = S.build_train_artifacts(cfg, shape, mesh, opt, remat=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    params = R.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    args = (params, opt.init(params), feed(cfg, b, s))
+    kept, calls = {}, Counter()
+    out["train"] = counted_step(
+        cfg, shape, "train", art, args, run["steps"], smi,
+        lambda: swapped(FA, "flash_attention",
+                        lambda fa: flash_keeper(kept, calls, fa)))
+    del args, params
+    out["train"]["config"] = (f"{run['arch']} get_config() (30 layers), "
+                              f"build_train_artifacts(batch {b}, seq {s}, "
+                              f"adam lr {run['lr']}, remat=True), "
+                              f"make_host_mesh('cuda')")
+    check(len(kept) == 1, f"phase 42 flash shapes {sorted(kept)}")
+    key, ins = next(iter(kept.items()))
+    rows.append(flash_path_row(key, ins, out["train"]["launches"]
+                               ["flash_attention"], "counted train step "
+                               "(phase 42)"))
+    del kept, ins
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the prefill step
+    run = COUNTED_PREFILL
+    cfg = dataclasses.replace(R.get_config(run["arch"]),
+                              n_layers=run["n_layers"])
+    b, s = run["batch"], run["seq"]
+    shape = ShapeSpec("counted_prefill", s, b, "prefill")
+    art = S.build_prefill_artifacts(cfg, shape, mesh)
+    params = R.init_params(cfg, torch.Generator(dev).manual_seed(0))
+    args = (params, feed(cfg, b, s))
+    kept, calls = {}, Counter()
+    out["prefill"] = counted_step(
+        cfg, shape, "prefill", art, args, run["steps"], smi,
+        lambda: swapped(SC, "ssd_chunk",
+                        lambda ssd: ssd_keeper(kept, calls, ssd)))
+    del args, params
+    out["prefill"]["config"] = (f"{run['arch']} get_config() at n_layers="
+                                f"{run['n_layers']} (of 64), "
+                                f"build_prefill_artifacts(batch {b}, seq "
+                                f"{s}), make_host_mesh('cuda')")
+    check(len(kept) == 1, f"phase 42 ssd shapes {sorted(kept)}")
+    (_, (g_, h_, q_, p_), n_), ins = next(iter(kept.items()))
+    got = SC.ssd_chunk(*ins)
+    want = SC.ssd_chunk_plain(*ins)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(got).all()), "phase 42 ssd_chunk not finite")
+    torch.testing.assert_close(got, want, atol=2e-4, rtol=2e-4)
+    sb_ms, sb_by = LC.ssd_cost(g_, h_, q_, n_, p_).bound()
+    rows.append({
+        "label": "counted prefill step (phase 42)",
+        "shape": [g_, h_, q_, n_, p_],
+        "launches": out["prefill"]["launches"]["ssd_chunk"],
+        "max_abs_err": float((got - want).abs().max()),
+        "ms": device_ms(lambda: SC.ssd_chunk(*ins)),
+        "plain_ms": device_ms(lambda: SC.ssd_chunk_plain(*ins), 20),
+        "bound_ms": sb_ms, "bound_by": sb_by, "library_ms": None})
+    print(f"ssd_chunk (phase 42): {rows[-1]}", flush=True)
+    del kept, ins, got, want
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, rows
+
+
 def main() -> int:
     t_script = time.perf_counter()
     # phase 26's fleet all but fills the card: with fixed-size segments the
@@ -3329,6 +3525,7 @@ def main() -> int:
     from repro_torch.dfl import worker as WK
     from repro_torch.dfl.simulator import SimConfig, run_simulation
     from repro_torch.kernels import _build
+    from repro_torch.launch import loopcost as LC
     from repro_torch.configs import (gemma2_2b, mamba2_2_7b,
                                      recurrentgemma_2b, smollm_135m)
     from repro_torch.dfl import lm_worker as LW
@@ -3489,7 +3686,7 @@ def main() -> int:
         big_err = max(big_err, float((got - want).abs().max()))
         torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
     del Yb, got
-    bb_ms, bb_by = agg_cost(2, Wb.cpu(), None, big_p, 2)
+    bb_ms, bb_by = LC.agg_cost(Wb.cpu(), None, big_p, 2).bound()
     big_row = {"label": "past 2^31 columns", "k": 2, "u": 2,
                "col_sparse": False, "P": big_p, "max_abs_err": big_err,
                "ms": device_ms(lambda: AGG.aggregate(Wb, Xb), reps=3),
@@ -3541,8 +3738,8 @@ def main() -> int:
     def agg_row(k, u, col, count):
         W, cid = agg_case(gen, k, u, N_WORKERS, col, dev)
         lib_cid = None if cid is None else cid.long()
-        b_ms, b_by = agg_cost(k, W.cpu(), None if cid is None else cid.cpu(),
-                              P, N_WORKERS)
+        b_ms, b_by = LC.agg_cost(W.cpu(), None if cid is None else cid.cpu(),
+                                 P, N_WORKERS).bound()
         return {
             "label": "sim", "k": k, "u": u, "col_sparse": col,
             "rounds": count,
@@ -3584,7 +3781,8 @@ def main() -> int:
     for k, with_losses in sgd_keys:
         buf, xb, yb, active = sgd_case(gen, k, steps, batch, cfg.dim,
                                        10, dev, P)
-        b_ms, b_by = sgd_cost(spec, active, k, steps, batch, with_losses)
+        b_ms, b_by = LC.sgd_cost(spec, active, k, steps, batch,
+                                    with_losses).bound()
         sgd_rows.append({
             "k": k, "with_losses": with_losses,
             "rounds": shapes[("fused_sgd", k, with_losses)],
@@ -3759,7 +3957,7 @@ def main() -> int:
           f"{err:.3e}, {ulps:.2f} bf16 ulps", flush=True)
     k_rep = k.repeat_interleave(h // hk, dim=1)
     v_rep = v.repeat_interleave(h // hk, dim=1)
-    fb_ms, fb_by = flash_cost(q, k, causal, window)
+    fb_ms, fb_by = LC.flash_cost(q, k, causal, window).bound()
     flash_row = {
         "shape": [b, h, s, d], "kv_heads": hk, "dtype": str(fdt),
         "causal": causal, "calls": fa_count,
@@ -3907,7 +4105,7 @@ def main() -> int:
                               if s_[0] == "ssd_chunk"), key=lambda sc: sc[1])
     _, g_, h_, q_, n_, p_ = ssd_key
     ins = ssd_case(gen, g_, h_, q_, n_, p_, 0.1, dev)
-    sb_ms, sb_by = ssd_cost(g_, h_, q_, n_, p_)
+    sb_ms, sb_by = LC.ssd_cost(g_, h_, q_, n_, p_).bound()
     ssd_row = {
         "shape": [g_, h_, q_, n_, p_], "calls": ssd_count,
         "ms": device_ms(lambda: SC.ssd_chunk(*ins)),
@@ -4021,7 +4219,7 @@ def main() -> int:
                     "torch_add_ms": agg_floor["torch_add_ms"]}
     for t_, e_, k_ in ((8, 8, 2), (4096, 384, 8)):
         x = router_logits(gen, t_, e_, dev)
-        rb_ms, rb_by = router_cost(t_, e_, k_)
+        rb_ms, rb_by = LC.router_cost(t_, e_, k_).bound()
         router_rows.append({
             "shape": [t_, e_, k_],
             "ms": device_ms(lambda: MR.moe_router(x, k_)),
@@ -4205,8 +4403,17 @@ def main() -> int:
     pods_phases_s = time.perf_counter() - t_pods
     print(f"phases 40-41: {pods_phases_s:.1f} s", flush=True)
 
+    # ---- 42. a counted step against its time -------------------------------
+    t_counted = time.perf_counter()
+    counted, counted_rows = counted_phase(smi)
+    counted_phase_s = time.perf_counter() - t_counted
+    print(f"phase 42: {counted_phase_s:.1f} s", flush=True)
+
     new_flash = list(ed_rows.values()) + [legacy_flash, train_flash,
                                           remat_flash, pods_flash]
+    new_flash += [r for r in counted_rows if "kv_heads" in r]
+    ssd_err = max([ssd_err] + [r["max_abs_err"] for r in counted_rows
+                               if "kv_heads" not in r])
     flash_ulps = max([flash_ulps] + [r["max_bf16_ulps"] for r in new_flash])
     flash_err = max([flash_err] + [r["max_abs_err"] for r in new_flash])
     agg_err = max([agg_err] + [r["max_abs_err"] for r in legacy_agg_rows
@@ -4335,6 +4542,19 @@ def main() -> int:
             **{k: r[k] for k in ("launches", "max_abs_err", "k", "n_in", "P",
                                  "ms", "plain_ms", "bound_ms", "bound_by",
                                  "library_ms")}})
+    for r in counted_rows:
+        kernels.append({
+            "name": ("flash_attention" if "kv_heads" in r else "ssd_chunk"),
+            "path": r["label"], "route": "cuda",
+            "source": ("src/repro_torch/kernels/csrc/flash_attention.cu"
+                       if "kv_heads" in r else
+                       "src/repro_torch/kernels/csrc/ssd_chunk.cu"),
+            "replaces": ("src/repro/kernels/flash_attention.py:102"
+                         if "kv_heads" in r else
+                         "src/repro/kernels/ssd_chunk.py:62"),
+            "launches": r.get("calls", r.get("launches")),
+            **{k: r[k] for k in ("max_abs_err", "shape", "ms", "plain_ms",
+                                 "bound_ms", "bound_by", "library_ms")}})
     for r in (legacy_flash, train_flash, remat_flash, pods_flash):
         kernels.append({
             "name": "flash_attention", "path": r["label"], "route": "cuda",
@@ -4437,12 +4657,14 @@ def main() -> int:
     print(json.dumps({"remat": {**remat, "flash": remat_flash}}))
     print(json.dumps({"pods": {**pods, "aggregate": pods_agg_rows,
                                "flash": pods_flash}}))
+    print(json.dumps({"counted": counted}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"script": {"wall_s": time.perf_counter() - t_script,
                                  "phases_26_29_wall_s": new_phases_s,
                                  "phases_30_35_wall_s": stub_phases_s,
                                  "phases_36_39_wall_s": legacy_phases_s,
-                                 "phases_40_41_wall_s": pods_phases_s}}))
+                                 "phases_40_41_wall_s": pods_phases_s,
+                                 "phase_42_wall_s": counted_phase_s}}))
     print(json.dumps({"sim": {
         "config": "SimConfig() defaults, DySTop(V=10.0, t_thre=20)",
         "rounds": hist.rounds[-1], "evals": len(hist.rounds),

@@ -1,9 +1,11 @@
 """Config dataclasses shared by every architecture in the zoo.
 
 The port's copy of ``repro.configs.base``: every field of the JAX package's
-dataclasses and the properties the models read (its analytic parameter
-counts are not ported), so a config names the same model in both
-packages.  ``ModelConfig.kernels`` holds the port's ``KernelConfig`` (tile
+dataclasses, the properties the models read and its analytic parameter
+counts (``param_count``, ``active_param_count``, copied with their quirks:
+they are not a real init's count, and ``launch/analysis.py``'s model
+FLOPs must equal the JAX package's), so a config names the same model in
+both packages.  ``ModelConfig.kernels`` holds the port's ``KernelConfig`` (tile
 sizes only: the tensor's device decides whether a kernel or its plain
 version runs).  One file per ported architecture lives next to this module
 (see ``models/registry.py``); each exports ``get_config()`` (the published
@@ -98,6 +100,52 @@ class ModelConfig:
         if self.attn_pattern == "local":
             return "attn_local"
         return "attn"
+
+    def param_count(self) -> int:
+        """Analytic parameter count (the JAX package's arithmetic verbatim,
+        quirks included: an rglru layer counts d * d width and 3 vectors,
+        every layer 2 norms; paligemma-3b's real init holds more)."""
+        d, hd = self.d_model, self.resolved_head_dim
+        attn = d * hd * self.n_heads + 2 * d * hd * self.n_kv_heads + hd * self.n_heads * d
+        dense_ffn = 3 * d * self.d_ff
+        total = self.vocab_size * d  # embed (tied head)
+        if not self.tie_embeddings:
+            total += self.vocab_size * d
+        for i in range(self.n_layers):
+            kind = self.layer_kind(i)
+            if kind in ("attn", "attn_local"):
+                total += attn
+            elif kind == "rglru":
+                dr = d                                     # rglru width = d_model
+                total += 2 * d * dr + dr * d + 3 * dr      # in/gate proj, out proj, recurrent params
+            elif kind == "ssm":
+                s = self.ssm or SSMConfig()
+                din = s.expand * d
+                nheads = din // s.head_dim
+                total += d * (2 * din + 2 * s.d_state + nheads) + din * d + nheads
+            if self.family == "encdec":
+                total += attn  # cross-attention in decoder layers
+            if self.is_moe_layer(i):
+                m = self.moe
+                total += d * m.n_experts  # router
+                total += m.n_experts * 3 * d * m.d_expert
+                total += m.n_shared_experts * 3 * d * m.d_expert
+            else:
+                total += dense_ffn
+            total += 2 * d  # norms
+        for _ in range(self.n_enc_layers):
+            total += attn + dense_ffn + 2 * d
+        total += d  # final norm
+        return int(total)
+
+    def active_param_count(self) -> int:
+        """Active params per token (MoE counts only routed top-k + shared)."""
+        if self.moe is None:
+            return self.param_count()
+        m = self.moe
+        full_experts = self.n_layers - m.first_dense_layers
+        inactive = full_experts * (m.n_experts - m.top_k) * 3 * self.d_model * m.d_expert
+        return int(self.param_count() - inactive)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -17,6 +17,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
+from repro_torch.launch import loopcost as LC
 
 _SIGNATURES = {
     "repro_aggregate_f32": (ctypes.c_int, [
@@ -84,18 +85,24 @@ def check_sizes(k: int, n_in: int, n_rows: int, p: int, p_blk: int) -> None:
                          f"{_GRID_Y_MAX} row blocks")
 
 
+@LC.counted("aggregate", lambda W, X, col_ids=None, **_: LC.agg_cost(
+    W, col_ids, X.shape[1], X.shape[0], data=False))
 def aggregate(W: torch.Tensor, X: torch.Tensor,
               col_ids: Optional[torch.Tensor] = None, *,
               p_blk: int = 128) -> torch.Tensor:
     """``Y (k, P) = W (k, n_in) @ X[col_ids] (n_in, P)`` in f32.
 
     ``col_ids`` (n_in,) int32, or None for ``n_in == N`` and the identity
-    gather.  CPU tensors run ``aggregate_plain``.  CUDA tensors launch the
-    kernel with ``p_blk`` threads per block (``KernelConfig.agg_p_blk``) and
-    need contiguous f32 ``W``/``X`` and contiguous int32 ``col_ids``; an
-    index outside ``[0, N)`` turns the outputs NaN.  Counts its kernel
-    launches in the module's ``launches``."""
+    gather.  CPU tensors run ``aggregate_plain``; ``meta`` tensors give an
+    empty output.  CUDA tensors launch the kernel with ``p_blk`` threads
+    per block (``KernelConfig.agg_p_blk``) and need contiguous f32
+    ``W``/``X`` and contiguous int32 ``col_ids``; an index outside ``[0,
+    N)`` turns the outputs NaN.  Counts its kernel launches in the
+    module's ``launches``; an active ``launch.loopcost`` counter counts the
+    call by ``agg_cost`` (every column)."""
     _check(W, X, col_ids)
+    if X.device.type == "meta":
+        return X.new_empty((W.shape[0], X.shape[1]), dtype=torch.float32)
     if X.device.type == "cpu":
         return aggregate_plain(W, X, col_ids)
     if X.device.type != "cuda":

@@ -26,6 +26,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import flash_attention_plain
+from repro_torch.launch import loopcost as LC
 
 __all__ = ["flash_attention", "flash_attention_plain", "check_sizes",
            "check_alignment", "launches"]
@@ -119,19 +120,27 @@ def check_alignment(name: str, data_ptr: int, shape, strides,
                              f"{TMA_ALIGN} bytes (TMA)")
 
 
+@LC.counted("flash_attention",
+            lambda q, k, v, causal=True, window=None, softcap=None:
+            LC.flash_cost(q, k, causal, window))
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
                     softcap: Optional[float] = None) -> torch.Tensor:
     """(B, H, S, D) attention output, laid out like ``q``.
 
     ``k``/``v``: (B, Hk, S, D) with H % Hk == 0.  CPU tensors run
-    ``flash_attention_plain``.  CUDA tensors launch the kernel for their
-    dtype (f32 or bf16) at the sizes ``check_sizes`` takes, last dimension
-    contiguous, and bf16 aligned as ``check_alignment`` says; anything else
-    raises.  Counts its launches in the module's ``launches``."""
+    ``flash_attention_plain``; ``meta`` tensors give an empty output.
+    CUDA tensors launch the kernel for their dtype (f32 or bf16) at the
+    sizes ``check_sizes`` takes, last dimension contiguous, and bf16
+    aligned as ``check_alignment`` says; anything else raises.  Counts its
+    launches in the module's ``launches``; an active
+    ``launch.loopcost`` counter counts the call by ``flash_cost``."""
     _check(q, k, v)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, window, softcap)
+    if q.device.type == "meta":
+        return torch.empty_like(q)
+    if q.device.type == "cpu":       # laid out like q, as the kernel's
+        return torch.empty_like(q).copy_(
+            flash_attention_plain(q, k, v, causal, window, softcap))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if q.dtype not in _SYMBOL:

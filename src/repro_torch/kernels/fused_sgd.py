@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.dfl import flat_state as FS
 from repro_torch.kernels import _build
+from repro_torch.launch import loopcost as LC
 
 LEAVES = ("b1", "b2", "b3", "w1", "w2", "w3")   # FlatSpec column order
 SMEM_LIMIT = 232448           # csrc kSmemLimit: dynamic shared memory a block
@@ -137,14 +138,20 @@ def _layout(spec: FS.FlatSpec):
                                                                      c]
 
 
+@LC.counted("fused_sgd", lambda buf, xb, yb, active, spec, lr,
+            with_losses=True: LC.sgd_cost(spec, active, buf.shape[0],
+                                          xb.shape[1], xb.shape[2],
+                                          with_losses, data=False))
 def fused_sgd(buf: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
               active: torch.Tensor, spec: FS.FlatSpec, lr: float,
               with_losses: bool = True
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``local_sgd_flat_fused``'s contract, on the CUDA kernel for CUDA
-    tensors (contiguous f32 ``buf``/``xb``, int32 ``yb``) and on the plain
-    version for CPU tensors.  Counts its kernel launches in the
-    module's ``launches``."""
+    tensors (contiguous f32 ``buf``/``xb``, int32 ``yb``), on the plain
+    version for CPU tensors, and empty outputs for ``meta`` tensors.
+    Counts its kernel launches in the module's ``launches``; an active
+    ``launch.loopcost`` counter counts the call by ``sgd_cost`` (every
+    row active)."""
     k, p = buf.shape
     if k == 0:
         raise ValueError("fused_sgd: no rows (k = 0) — callers skip local "
@@ -161,6 +168,8 @@ def fused_sgd(buf: torch.Tensor, xb: torch.Tensor, yb: torch.Tensor,
         if t.device != buf.device:
             raise ValueError(f"fused_sgd: {name} is on {t.device}, buf on "
                              f"{buf.device}")
+    if buf.device.type == "meta":
+        return buf.new_empty((k, p)), buf.new_empty((k,))
     if buf.device.type == "cpu":
         return local_sgd_flat_fused(buf, xb, yb, active, spec, lr,
                                     with_losses=with_losses)

@@ -21,6 +21,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import moe_router_plain
+from repro_torch.launch import loopcost as LC
 
 __all__ = ["moe_router", "moe_router_plain", "check_sizes", "launches"]
 
@@ -49,16 +50,24 @@ def check_sizes(t: int, e: int, k: int) -> None:
                          f"{_INT_MAX}]")
 
 
+@LC.counted("moe_router", lambda logits, top_k: LC.router_cost(
+    *logits.shape, top_k))
 def moe_router(logits: torch.Tensor, top_k: int
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(gates (T, k) f32, ids (T, k) int32) of f32 logits (T, E).
 
-    CPU tensors run ``moe_router_plain``.  CUDA tensors launch the kernel:
-    f32 logits with a unit expert stride, sizes as ``check_sizes`` takes.
-    Counts its launches in the module's ``launches``."""
+    CPU tensors run ``moe_router_plain``; ``meta`` tensors give empty
+    outputs.  CUDA tensors launch the kernel: f32 logits with a unit
+    expert stride, sizes as ``check_sizes`` takes.  Counts its launches in
+    the module's ``launches``; an active ``launch.loopcost`` counter counts
+    the call by ``router_cost``."""
     if logits.dim() != 2:
         raise ValueError(f"moe_router: logits must be (T, E), got "
                          f"{tuple(logits.shape)}")
+    if logits.device.type == "meta":
+        t = logits.shape[0]
+        return (logits.new_empty((t, top_k), dtype=torch.float32),
+                logits.new_empty((t, top_k), dtype=torch.int32))
     if logits.device.type == "cpu":
         return moe_router_plain(logits, top_k)
     if logits.device.type != "cuda":

@@ -27,6 +27,7 @@ import torch
 
 from repro_torch.kernels import _build
 from repro_torch.kernels.ref import ssd_chunk_plain
+from repro_torch.launch import loopcost as LC
 
 __all__ = ["ssd_chunk", "ssd_chunk_plain", "launches"]
 
@@ -78,16 +79,23 @@ def check_sizes(g: int, h: int, q: int, n: int, p: int) -> None:
         raise ValueError(f"ssd_chunk: N={n} is outside a C int")
 
 
+@LC.counted("ssd_chunk", lambda Bc, Cc, cum_la, xbar: LC.ssd_cost(
+    *xbar.shape[:3], Bc.shape[2], xbar.shape[3]))
 def ssd_chunk(Bc: torch.Tensor, Cc: torch.Tensor, cum_la: torch.Tensor,
               xbar: torch.Tensor) -> torch.Tensor:
     """(G, H, Q, P) f32 intra-chunk output, laid out like ``xbar``.
 
-    CPU tensors run ``ssd_chunk_plain``.  CUDA tensors launch the kernel:
-    f32, P in ``HEAD_DIMS``, Q <= ``MAX_CHUNK``, last dimension contiguous.
-    Counts its launches in the module's ``launches``."""
+    CPU tensors run ``ssd_chunk_plain``; ``meta`` tensors give an empty
+    output.  CUDA tensors launch the kernel: f32, P in ``HEAD_DIMS``, Q <=
+    ``MAX_CHUNK``, last dimension contiguous.  Counts its launches in the
+    module's ``launches``; an active ``launch.loopcost`` counter counts
+    the call by ``ssd_cost``."""
     _check(Bc, Cc, cum_la, xbar)
-    if xbar.device.type == "cpu":
-        return ssd_chunk_plain(Bc, Cc, cum_la, xbar)
+    if xbar.device.type == "meta":
+        return torch.empty_like(xbar, dtype=torch.float32)
+    if xbar.device.type == "cpu":    # laid out like xbar, as the kernel's
+        return torch.empty_like(xbar, dtype=torch.float32).copy_(
+            ssd_chunk_plain(Bc, Cc, cum_la, xbar))
     if xbar.device.type != "cuda":
         raise ValueError(f"ssd_chunk: no kernel for device {xbar.device}")
     for name, t in (("Bc", Bc), ("Cc", Cc), ("cum_la", cum_la),

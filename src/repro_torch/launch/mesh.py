@@ -1,4 +1,16 @@
-"""The fleet mesh: one process per shard of the fleet's worker axis.
+"""Meshes: the production and host mesh descriptions, the card's roofline
+constants, and the fleet mesh (one process per shard of the fleet's worker
+axis).
+
+``make_production_mesh`` and ``make_host_mesh`` (the ports of the JAX
+package's functions of those names) return a ``Mesh``: axis names and
+sizes, and the device of a mesh of one.  That is all the logical-axis
+rules read (``sharding.rules.logical_spec``, as the JAX package's
+``abstract_mesh`` says), so a 256- or 512-device mesh needs no process
+group and no card: the dry-run (``launch/dryrun.py``) builds its specs on
+one.  No step runs sharded over it yet (the sharded execution item of the
+roadmap); the host mesh's one device, where every spec is a no-op, is
+where steps run.
 
 The JAX package's fleet mesh (``repro.launch.mesh.make_fleet_mesh``) is a
 1-D device mesh under one controller; GSPMD and ``shard_map`` add the
@@ -22,15 +34,64 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import math
 import os
 import pickle
 import queue
 import tempfile
 import traceback
-from typing import Any, Callable
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+# NVIDIA H100 80GB HBM3 (SXM) at its 700 W limit, the data sheet's dense
+# rates: the roofline constants of launch/analysis.py and the kernels'
+# bounds (launch/loopcost.py)
+CARD = "NVIDIA H100 80GB HBM3, 700 W"
+PEAK_FLOPS_BF16 = 989e12        # tensor cores, per card
+PEAK_FLOPS_F32 = 67e12          # CUDA cores, outside the tensor cores
+HBM_BW = 3.35e12                # bytes/s per card
+HBM_BYTES = 80e9                # device memory per card
+NVLINK_BW = 450e9               # bytes/s each way per card (NVLink 4)
+
+
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A device mesh as the logical-axis rules see it: ``axis_names`` with
+    their ``sizes`` (major to minor), and the ``device`` of a mesh of one
+    (None for a description that no step runs on)."""
+    axis_names: Tuple[str, ...]
+    sizes: Tuple[int, ...]
+    device: Optional[torch.device] = None
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        """Axis name -> size, as ``jax.sharding.Mesh.shape``."""
+        return dict(zip(self.axis_names, self.sizes))
+
+    @property
+    def n_devices(self) -> int:
+        return math.prod(self.sizes)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
+    """The JAX package's production meshes: ("data", "model") 16 x 16, or
+    with ``multi_pod`` ("pod", "data", "model") 2 x 16 x 16 (the pod axis is
+    the DFL worker axis: each pod holds one replica)."""
+    if multi_pod:
+        return Mesh(("pod", "data", "model"), (2, 16, 16))
+    return Mesh(("data", "model"), (16, 16))
+
+
+def make_host_mesh(device="cuda") -> Mesh:
+    """A 1 x 1 ("data", "model") mesh on one device ("cuda" by default,
+    "cpu" or "meta" where the caller asks): every spec is a no-op."""
+    return Mesh(("data", "model"), (1, 1),
+                resolve_device(device, "make_host_mesh", meta=True))
+
 
 COLLECTIVE_TIMEOUT = datetime.timedelta(seconds=600)
 _POLL_S = 0.2
@@ -129,10 +190,10 @@ def _rank_main(rank: int, n: int, init_file: str, device: str,
             dist.destroy_process_group()
 
 
-def spawn(fn: Callable, mesh_shards: int, *args, device="cpu") -> Any:
+def spawn(fn: Callable, mesh_shards: int, *args, device="cuda") -> Any:
     """Run ``fn(*args)`` in ``mesh_shards`` fresh processes (the ``spawn``
-    start method) joined into one fleet mesh on ``device``, and return rank
-    0's result.
+    start method) joined into one fleet mesh on ``device`` (the card unless
+    the caller asks for the CPU), and return rank 0's result.
 
     ``fn`` must be a module-level function, and its arguments and rank 0's
     result must pickle; the result must hold no CUDA tensor (the rank's
@@ -143,6 +204,7 @@ def spawn(fn: Callable, mesh_shards: int, *args, device="cpu") -> Any:
     """
     if mesh_shards < 2:
         raise ValueError(f"spawn: a mesh needs >= 2 ranks, got {mesh_shards}")
+    device = resolve_device(device, "spawn")
     import torch.multiprocessing as mp
     ctx = mp.get_context("spawn")
     results = ctx.Queue()

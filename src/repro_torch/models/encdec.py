@@ -46,6 +46,16 @@ def init_encdec(gen: Optional[torch.Generator], cfg: ModelConfig) -> Params:
             "final_norm": L.init_rmsnorm(cfg, dev)}
 
 
+def encdec_axes(cfg: ModelConfig) -> Params:
+    """``init_encdec``'s logical-axes tree (the layer stacks behind a
+    leading ``"stack"``)."""
+    return {"embed": L.embedding_axes(cfg),
+            "encoder": T._stacked_axes(T.layer_axes(cfg, "attn", 0)),
+            "decoder": T._stacked_axes(T.layer_axes(cfg, "attn", 0,
+                                                    cross=True)),
+            "enc_norm": L.RMSNORM_AXES, "final_norm": L.RMSNORM_AXES}
+
+
 def _positions(b: int, s: int, device) -> torch.Tensor:
     return torch.arange(s, dtype=torch.int32, device=device)[None, :].expand(
         b, s)

@@ -6,6 +6,10 @@ Conventions, as in the JAX package:
     is drawn (the JAX package splits PRNG keys, so the two inits differ;
     tests hand the reference's init over).  ``gen=None`` builds the leaves
     on the ``meta`` device: shapes and dtypes, nothing allocated;
+  * beside each ``init_*`` an ``*_axes(cfg)`` function gives the second
+    half of the JAX package's ``init_*`` result: the logical-axes tree, the
+    params tree's structure with a tuple of logical axis names per leaf
+    (``sharding.rules``), built from ``cfg`` alone;
   * activations run in ``cfg.dtype`` (bf16 by default), norm and softmax
     statistics in f32, logits in f32;
   * shapes: tokens (B, S); hidden (B, S, D); attention heads (B, S, H, hd).
@@ -16,7 +20,8 @@ version on the CPU), causal or not (the enc-dec encoder's).  A decode step
 against a cache, cross-attention and a bidirectional prefix (the prefix-LM)
 are einsums, as in the JAX package, which keeps all three off its Pallas
 path too.  The sharding hints of the JAX package (``constrain``) are the
-identity on one card and are not ported.
+identity on one card and are not threaded through the model code (the
+sharded execution item of the roadmap).
 """
 from __future__ import annotations
 
@@ -113,6 +118,10 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
                                  cfg.d_model, _dtype(cfg))}
 
 
+def embedding_axes(cfg: ModelConfig) -> Params:
+    return {"table": ("vocab", "embed")}
+
+
 # --------------------------------------------------------------------------- #
 # normalization
 # --------------------------------------------------------------------------- #
@@ -120,6 +129,9 @@ def init_embedding(gen: torch.Generator, cfg: ModelConfig) -> Params:
 
 def init_rmsnorm(cfg: ModelConfig, device=None) -> torch.Tensor:
     return torch.zeros((cfg.d_model,), dtype=torch.float32, device=device)
+
+
+RMSNORM_AXES = ("embed",)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
@@ -175,6 +187,14 @@ def init_attention(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "wv": _dense_init(gen, (d, cfg.n_kv_heads, hd), d, dt),
         "wo": _dense_init(gen, (cfg.n_heads, hd, d), cfg.n_heads * hd, dt),
     }
+
+
+def attention_axes(cfg: ModelConfig) -> Params:
+    """Self- and cross-attention share one layout."""
+    return {"wq": ("embed", "heads", "head_dim"),
+            "wk": ("embed", "kv_heads", "head_dim"),
+            "wv": ("embed", "kv_heads", "head_dim"),
+            "wo": ("heads", "head_dim", "embed")}
 
 
 def _project(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -292,6 +312,11 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
     return {"w_gate": _dense_init(gen, (d, f), d, dt),
             "w_up": _dense_init(gen, (d, f), d, dt),
             "w_down": _dense_init(gen, (f, d), f, dt)}
+
+
+def mlp_axes(cfg: ModelConfig) -> Params:
+    return {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+            "w_down": ("mlp", "embed")}
 
 
 def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:

@@ -21,8 +21,7 @@ moe_router_diff``: the kernel's forward, the plain version's backward), and
 ``route`` returns the Switch-style load-balance term, which the registry's
 ``compute_loss`` adds at ``router_aux_weight``.  Dropped choices land on a
 dummy row that is discarded before the expert products, so they add
-nothing to any gradient.  The logical-axes trees are not ported (nothing
-on one card reads them).
+nothing to any gradient.  ``moe_axes`` gives the logical-axes tree.
 """
 from __future__ import annotations
 
@@ -56,6 +55,22 @@ def init_moe(gen: Optional[torch.Generator], cfg: ModelConfig) -> Params:
                        "w_up": _dense_init(gen, (d, f), d, dt),
                        "w_down": _dense_init(gen, (f, d), f, dt)}
     return p
+
+
+def moe_axes(cfg: ModelConfig) -> Params:
+    """``init_moe``'s logical axes.  ``experts`` wins the model axis when
+    n_experts divides it (expert parallel, kimi-k2); otherwise
+    ``expert_mlp`` takes it (tensor parallel inside each expert, grok-1's
+    8 experts): ``sharding.rules.logical_spec`` uses a mesh axis once per
+    tensor, which makes the fallback automatic."""
+    ax = {"router": ("embed", "experts"),
+          "w_gate": ("experts", "expert_embed", "expert_mlp"),
+          "w_up": ("experts", "expert_embed", "expert_mlp"),
+          "w_down": ("experts", "expert_mlp", "expert_embed")}
+    if cfg.moe.n_shared_experts:
+        ax["shared"] = {"w_gate": ("embed", "mlp"), "w_up": ("embed", "mlp"),
+                        "w_down": ("mlp", "embed")}
+    return ax
 
 
 def expert_capacity(cfg: ModelConfig, n_tokens: int) -> int:

@@ -11,8 +11,10 @@ plus ``router_aux_weight`` times the MoE load-balance term (0 for a family
 without MoE), as the JAX package's does.  The shape helpers
 (``batch_specs``, ``abstract_decode_cache``, ``supported_shapes``,
 ``long_context_capable``) answer without allocating: their tensors live on
-the ``meta`` device.  ``abstract_params`` and the logical-axis trees are
-not ported (the sharding item of the roadmap).
+the ``meta`` device, as do ``abstract_params``'s.  ``param_axes`` and
+``batch_logical_axes`` give the logical-axes trees that
+``sharding.rules`` turns into specs (the JAX package's ``init_params``
+returns its axes beside the params; here they come from ``cfg`` alone).
 """
 from __future__ import annotations
 
@@ -57,6 +59,20 @@ def init_params(cfg: ModelConfig, gen: Optional[torch.Generator]) -> Params:
     return T.init_decoder(gen, cfg)
 
 
+def param_axes(cfg: ModelConfig) -> Params:
+    """The logical-axes tree of ``init_params(cfg, ...)``: its structure,
+    a tuple of logical axis names per leaf."""
+    if is_encdec(cfg):
+        return E.encdec_axes(cfg)
+    return T.decoder_axes(cfg)
+
+
+def abstract_params(cfg: ModelConfig) -> Tuple[Params, Params]:
+    """(params on the ``meta`` device, their logical axes): shapes and
+    dtypes with no allocation."""
+    return init_params(cfg, None), param_axes(cfg)
+
+
 def _logits(cfg: ModelConfig, params: Params,
             batch: Dict[str, torch.Tensor], remat: bool = False
             ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -96,6 +112,20 @@ def batch_specs(cfg: ModelConfig, shape: ShapeSpec
         out["prefix_embeds"] = meta((b, cfg.n_prefix_tokens, cfg.d_model),
                                     dt)
     return out
+
+
+def batch_logical_axes(cfg: ModelConfig, shape: ShapeSpec
+                       ) -> Dict[str, tuple]:
+    """Logical axes of ``batch_specs(cfg, shape)``'s inputs."""
+    if shape.mode not in ("train", "prefill"):
+        return {"token": ("data", None)}
+    ax = {"tokens": ("data", None), "labels": ("data", None),
+          "loss_mask": ("data", None)}
+    if is_encdec(cfg):
+        ax["frames"] = ("data", None, "embed_act")
+    if has_prefix(cfg):
+        ax["prefix_embeds"] = ("data", None, "embed_act")
+    return ax
 
 
 def forward_logits(cfg: ModelConfig, params: Params,

@@ -70,6 +70,14 @@ def init_rglru(gen: Optional[torch.Generator], cfg: ModelConfig) -> Params:
     }
 
 
+def rglru_axes(cfg: ModelConfig) -> Params:
+    return {"w_gelu": ("embed", "rnn_width"), "w_rec": ("embed", "rnn_width"),
+            "conv_w": (None, "rnn_width"), "conv_b": ("rnn_width",),
+            "w_a": ("rnn_width", "rnn_width"), "b_a": ("rnn_width",),
+            "w_x": ("rnn_width", "rnn_width"), "b_x": ("rnn_width",),
+            "lam": ("rnn_width",), "w_out": ("rnn_width", "embed")}
+
+
 def _gates(p: Params, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (B, S, dr) -> (log_a, gated input), both f32."""
     xf = x.float()

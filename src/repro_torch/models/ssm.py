@@ -7,8 +7,8 @@ CUDA kernel on the card, its plain version on the CPU), and the running
 state crosses chunks in a Python loop (the JAX package's ``lax.scan``).
 Decode is the O(1)-per-token recurrent update (``init_ssm_cache``,
 ``ssm_decode_step``), state in f32.  Single B/C group (n_groups = 1),
-scalar-per-head A, depthwise causal conv over [x, B, C].  The logical-axes trees of the JAX package are not
-ported (nothing on one card reads them).
+scalar-per-head A, depthwise causal conv over [x, B, C].  ``ssm_axes``
+gives the logical-axes tree.
 """
 from __future__ import annotations
 
@@ -50,6 +50,13 @@ def init_ssm(gen: torch.Generator, cfg: ModelConfig) -> Params:
         "norm": torch.zeros((d_in,), **f32),
         "w_out": _dense_init(gen, (d_in, d), d_in, dt),
     }
+
+
+def ssm_axes(cfg: ModelConfig) -> Params:
+    return {"w_in": ("embed", "ssm_inner"), "conv_w": (None, "ssm_inner"),
+            "conv_b": ("ssm_inner",), "A_log": (None,), "D": (None,),
+            "dt_bias": (None,), "norm": ("ssm_inner",),
+            "w_out": ("ssm_inner", "embed")}
 
 
 def _split_in(cfg: ModelConfig, h: torch.Tensor):

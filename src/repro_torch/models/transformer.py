@@ -110,6 +110,38 @@ def init_layer(gen: Optional[torch.Generator], cfg: ModelConfig, kind: str,
     return p
 
 
+def _stacked_axes(ax):
+    """``ax`` with a leading ``"stack"`` on every leaf (a scanned group)."""
+    return tree_map(lambda t: ("stack",) + t, ax)
+
+
+def layer_axes(cfg: ModelConfig, kind: str, layer_idx: int,
+               cross: bool = False) -> Params:
+    """``init_layer``'s logical-axes tree."""
+    ax: Params = {"ln1": L.RMSNORM_AXES}
+    if kind in ("attn", "attn_local"):
+        ax["attn"] = L.attention_axes(cfg)
+    elif kind == "rglru":
+        ax["rglru"] = RG.rglru_axes(cfg)
+    elif kind == "ssm":
+        ax["ssm"] = S.ssm_axes(cfg)
+    if cross:
+        ax["ln_x"] = L.RMSNORM_AXES
+        ax["xattn"] = L.attention_axes(cfg)
+    has_ffn = cfg.d_ff > 0
+    if has_ffn:
+        ax["ln2"] = L.RMSNORM_AXES
+        if cfg.is_moe_layer(layer_idx):
+            ax["moe"] = M.moe_axes(cfg)
+        else:
+            ax["mlp"] = L.mlp_axes(cfg)
+    if cfg.post_norm:
+        ax["ln1_post"] = L.RMSNORM_AXES
+        if has_ffn:
+            ax["ln2_post"] = L.RMSNORM_AXES
+    return ax
+
+
 def _attn_spec(cfg: ModelConfig, kind: str,
                prefix_len: int = 0) -> L.AttnSpec:
     return L.AttnSpec(
@@ -271,6 +303,23 @@ def init_decoder(gen: Optional[torch.Generator], cfg: ModelConfig
                  for j in range(n_coda)]
     p["final_norm"] = L.init_rmsnorm(cfg, L._device(gen))
     return p
+
+
+def decoder_axes(cfg: ModelConfig) -> Params:
+    """``init_decoder``'s logical-axes tree: each ``blocks`` leaf's axes
+    behind a leading ``"stack"`` (the group axis; None without groups)."""
+    n_pre, n_grp, n_coda = structure(cfg)
+    per = pattern(cfg)
+    base = n_pre + n_grp * len(per)
+    return {"embed": L.embedding_axes(cfg),
+            "prelude": [layer_axes(cfg, cfg.layer_kind(i), i)
+                        for i in range(n_pre)],
+            "blocks": _stacked_axes(
+                {f"p{j}": layer_axes(cfg, kind, n_pre + j)
+                 for j, kind in enumerate(per)}) if n_grp else None,
+            "coda": [layer_axes(cfg, cfg.layer_kind(base + j), base + j)
+                     for j in range(n_coda)],
+            "final_norm": L.RMSNORM_AXES}
 
 
 # --------------------------------------------------------------------------- #

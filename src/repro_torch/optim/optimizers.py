@@ -6,7 +6,8 @@ update computes in f32 and rounds the new parameter to the leaf's dtype
 (bf16 on the LM plane) before returning it — the LM fleet writes that
 rounded value back into its f32 row, as the JAX package does; skipping the
 rounding lets the port drift from the reference within a few rounds.
-``state_axes`` (sharding metadata) is not ported.
+``state_axes`` maps the params' logical-axes tree to the state's
+(``launch/steps.py`` builds the state's specs from it).
 
 Flat-fleet residency contract: the state is a tree of tensors whose
 structure the param structure alone fixes, and whose leaves survive an f32
@@ -30,6 +31,7 @@ class Optimizer:
     name: str
     init: Callable[[Any], Any]
     update: Callable[[Any, Any, Any], Tuple[Any, Any]]   # (grads, state, params)
+    state_axes: Callable[[Any], Any]                      # param axes -> state's
 
 
 def _zeros_like_tree(params, dtype=None):
@@ -44,6 +46,10 @@ def _step0(params):
 
 def _part(out, i):
     return tree_map(lambda t: t[i], out)
+
+
+def _mu_axes(param_axes):
+    return {"step": (), "mu": param_axes}
 
 
 def sgd(lr: float = 1e-2, momentum: float = 0.9,
@@ -62,7 +68,7 @@ def sgd(lr: float = 1e-2, momentum: float = 0.9,
         out = tree_map(upd, grads, state["mu"], params)
         return _part(out, 0), {"step": state["step"] + 1, "mu": _part(out, 1)}
 
-    return Optimizer("sgd", init, update)
+    return Optimizer("sgd", init, update, _mu_axes)
 
 
 def sgdm_bf16(lr: float = 1e-2, momentum: float = 0.9) -> Optimizer:
@@ -80,7 +86,7 @@ def sgdm_bf16(lr: float = 1e-2, momentum: float = 0.9) -> Optimizer:
         out = tree_map(upd, grads, state["mu"], params)
         return _part(out, 0), {"step": state["step"] + 1, "mu": _part(out, 1)}
 
-    return Optimizer("sgdm_bf16", init, update)
+    return Optimizer("sgdm_bf16", init, update, _mu_axes)
 
 
 def adam(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
@@ -112,7 +118,10 @@ def adam(lr: float = 3e-4, b1: float = 0.9, b2: float = 0.95,
         return _part(out, 0), {"step": step, "mu": _part(out, 1),
                                "nu": _part(out, 2)}
 
-    return Optimizer("adam", init, update)
+    def state_axes(param_axes):
+        return {"step": (), "mu": param_axes, "nu": param_axes}
+
+    return Optimizer("adam", init, update, state_axes)
 
 
 def adafactor(lr: float = 3e-4, decay: float = 0.8, eps: float = 1e-30,
@@ -157,7 +166,17 @@ def adafactor(lr: float = 3e-4, decay: float = 0.8, eps: float = 1e-30,
         out = tree_map(upd, grads, state["mu"], params)
         return _part(out, 0), {"step": step, "mu": _part(out, 1)}
 
-    return Optimizer("adafactor", init, update)
+    def state_axes(param_axes):
+        """A factored leaf's row statistics drop its last axis, its column
+        statistics the one before."""
+        def one(ax):
+            if len(ax) >= 2:
+                return {"row": ax[:-1], "col": ax[:-2] + ax[-1:]}
+            return {"full": ax}
+
+        return {"step": (), "mu": tree_map(one, param_axes)}
+
+    return Optimizer("adafactor", init, update, state_axes)
 
 
 OPTIMIZER_NAMES = ("adam", "sgd", "sgdm_bf16", "adafactor")

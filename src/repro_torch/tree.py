@@ -30,6 +30,20 @@ def tree_map(fn: Callable, tree, *rest):
     return fn(tree, *rest)
 
 
+def tree_map_with_path(fn: Callable, tree, prefix: Path = ()):
+    """``fn(path, leaf)`` applied leaf by leaf, keeping the structure (empty
+    lists and None subtrees too)."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map_with_path(fn, v, prefix + (k,))
+                for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [tree_map_with_path(fn, v, prefix + (i,))
+                for i, v in enumerate(tree)]
+    return fn(prefix, tree)
+
+
 def tree_paths(tree, prefix: Path = ()) -> List[Tuple[Path, Any]]:
     """``(path, leaf)`` pairs in ``jax.tree.leaves`` order."""
     if tree is None:

@@ -515,10 +515,25 @@ def test_aggregate_row_limits_and_devices():
         T_AGG.check_sizes(8, 2 ** 31, 8, 64, 128)
     with pytest.raises(ValueError, match="P=0"):
         T_AGG.check_sizes(8, 8, 8, 0, 128)
-    meta = torch.device("meta")
-    with pytest.raises(ValueError, match="no kernel for device meta"):
-        T_AGG.aggregate(torch.ones((2, 3), device=meta),
-                        torch.ones((3, 5), device=meta))
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        T_AGG.aggregate(_on_xpu(torch.ones((2, 3))),
+                        _on_xpu(torch.ones((3, 5))))
+    # meta has no data: an empty output of the right shape
+    out = T_AGG.aggregate(torch.ones((2, 3), device="meta"),
+                          torch.ones((3, 5), device="meta"))
+    assert (out.device.type, out.shape, out.dtype) == ("meta", (2, 5),
+                                                       torch.float32)
+
+
+class _Xpu(torch.Tensor):
+    """A tensor that says it lies on a device with no kernel here."""
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _on_xpu(t):
+    return torch.Tensor._make_subclass(_Xpu, t)
 
 
 @pytest.mark.cuda

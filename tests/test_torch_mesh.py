@@ -215,7 +215,7 @@ def _twins_rank(inp):
 @pytest.mark.parametrize("shards", [2, 4])
 def test_twins_match_jax_twins(jax_twins, shards):
     inp, ref = jax_twins
-    rows, cols, new, loss = T_MESH.spawn(_twins_rank, shards, inp)
+    rows, cols, new, loss = T_MESH.spawn(_twins_rank, shards, inp, device="cpu")
     for name, got, want in (("rows", rows, ref[f"rows{shards}"]),
                             ("cols", cols, ref[f"cols{shards}"]),
                             ("sgd", new, ref[f"sgd{shards}"]),
@@ -305,7 +305,7 @@ def _engine_rank(col):
 def test_engine_buffer_matches_unsharded(shards, col):
     plans, buf, spec, data, parts = _engine_world(shards)
     want = _engine_run(plans, buf.clone(), spec, data, parts, col, None)
-    got = T_MESH.spawn(_engine_rank, shards, col)
+    got = T_MESH.spawn(_engine_rank, shards, col, device="cpu")
     assert got.shape == tuple(want.shape)
     # rtol 1e-5; the row-sparse twin sums its partial products in another
     # order, which near 0 leaves f32 noise of a few 1e-9 (atol 1e-6)
@@ -428,11 +428,11 @@ def _die_on_rank_1():
 def test_failing_rank_fails_the_call():
     t0 = time.perf_counter()
     with pytest.raises(ValueError, match="on purpose") as err:
-        T_MESH.spawn(_raise_on_rank_1, 2)
+        T_MESH.spawn(_raise_on_rank_1, 2, device="cpu")
     assert any("rank 1 of 2" in note for note in err.value.__notes__)
     # rank 0 sees the lost peer in its all-reduce, or the parent sees rank
     # 1 gone without a result: either way the call raises
     with pytest.raises(RuntimeError) as err:
-        T_MESH.spawn(_die_on_rank_1, 2)
+        T_MESH.spawn(_die_on_rank_1, 2, device="cpu")
     assert err.value.__notes__[-1].endswith(", 3]")
     assert time.perf_counter() - t0 < 60

@@ -102,8 +102,24 @@ def test_moe_router_check_sizes_rejects(t, e, k):
 def test_moe_router_wrapper_rejects_bad_input():
     with pytest.raises(ValueError, match="logits must be"):
         T_MR.moe_router(torch.zeros((2, 3, 4)), 2)
-    with pytest.raises(ValueError, match="no kernel for device"):
-        T_MR.moe_router(torch.zeros((2, 4), device="meta"), 2)
+    with pytest.raises(ValueError, match="no kernel for device xpu"):
+        T_MR.moe_router(_on_xpu(torch.zeros((2, 4))), 2)
+    # meta has no data: empty outputs of the right shapes and dtypes
+    gates, ids = T_MR.moe_router(torch.zeros((2, 4), device="meta"), 2)
+    assert (gates.shape, gates.dtype, ids.shape, ids.dtype) == (
+        (2, 2), torch.float32, (2, 2), torch.int32)
+    assert gates.device.type == ids.device.type == "meta"
+
+
+class _Xpu(torch.Tensor):
+    """A tensor that says it lies on a device with no kernel here."""
+    @property
+    def device(self):
+        return torch.device("xpu")
+
+
+def _on_xpu(t):
+    return torch.Tensor._make_subclass(_Xpu, t)
 
 
 @pytest.mark.parametrize("capacity, t", [(8, 32), (4, 16)])
