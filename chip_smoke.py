@@ -11,8 +11,9 @@ baselines), Theorem 1's bound, snapshots with resume on both planes, the
 legacy per-leaf paths of both planes, the trainer (``launch/train.py``) with
 and without activation recomputation, the pods-as-workers plane
 (``make_dystop_round_step`` with ``dystop_pod_mix``, stacked and on 4 gloo
-ranks), and a counted train step and prefill (``launch/steps.py``'s
-artifacts against ``launch/loopcost.py``'s count).
+ranks), a counted train step and prefill (``launch/steps.py``'s
+artifacts against ``launch/loopcost.py``'s count), and the tools' twins
+(the kill-and-resume check, the examples, the chunked prefix-LM).
 
     python3 chip_smoke.py            # from the repository root
 
@@ -182,10 +183,10 @@ Phases 22-25 run the Table-I arena, the convergence bound and snapshots:
    into ``ARENA_CFG``: 24 workers, a 6,000-round cap, 4,000 simulated s,
    target 0.55, seed 0): each of DySTop, MATCHA, GossipFL, AsyDFL and
    SA-ADFL runs ``run_simulation`` on the card with the counters zeroed
-   (``aggregate`` and ``fused_sgd`` must launch), on the CPU (control
-   plane identical, ``acc_global`` within 1e-3 at every eval) and once more
-   on the card under the profiler (the busy share); reports t@0.55, comm
-   GB@0.55, the final accuracy, wall and busy share per mechanism, and
+   (``aggregate`` and ``fused_sgd`` must launch), on the CPU at one
+   intra-op thread (control plane identical, ``acc_global`` within 1e-3 at
+   every eval) and once more on the card under a profiler that records
+   device activity alone (the busy share); reports t@0.55, comm GB@0.55, the final accuracy, wall and busy share per mechanism, and
    DySTop's savings against the best ADFL baseline beside the JAX
    package's CPU figures; then holds each kernel at the cell's new shapes
    against its plain version and times it beside the library call and its
@@ -352,13 +353,30 @@ Phase 42 counts a step against its time (``counted_phase``):
    ``ssd_chunk`` held on their first call's inputs against their plain
    versions and timed beside their bounds.
 
+Phase 43 runs the tools' twins as a user runs them on the card:
+
+43. (a) ``scripts/torch_chaos_check.py --plane both --device cuda`` as a
+   subprocess: exit 0 and ``passed`` on both planes (each plane's
+   ``killed_mid_run`` and ``resume_from`` printed); (b) each of
+   ``examples/torch_quickstart.py``, ``torch_dfl_federation.py``,
+   ``torch_dfl_lm.py``, ``torch_serve_lm.py`` and
+   ``torch_serving_engine.py`` in this process (``runpy``) at its default
+   arguments, the counters zeroed just before and read just after: its
+   last printed line, its wall, exactly the kernels its path runs
+   (``EXAMPLES``), flash held on each shape's first inputs (2 bf16 ulps);
+   (c) paligemma-3b's loss at phase 31's full width with
+   ``attn_impl="chunked"`` and naive: both finite, within
+   ``CHUNKED_LOSS_TOL``, no kernel launched, ``chunked_attention`` called
+   once per layer under "chunked" and never under "naive", time and peak
+   of each.
+
 Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
 ``{"mamba2": ...}``, ``{"serving": ...}``, ``{"mesh": ...}``, ``{"arena":
 ...}``, ``{"convergence": ...}``, ``{"sigkill_resume": ...}``,
 ``{"lm_snapshot": ...}``, ``{"hybrid": ...}``, ``{"moe_train": ...}``,
 ``{"vlm": ...}``, ``{"encdec": ...}``, ``{"legacy": ...}``, ``{"train":
 ...}``, ``{"remat": ...}``, ``{"pods": ...}``, ``{"counted": ...}``,
-``{"kernels": [...]}`` (the three mesh twins as row 3, then phases 26, 29,
+``{"tools": ...}``, ``{"kernels": [...]}`` (the three mesh twins as row 3, then phases 26, 29,
 33, 34, 36, 41, 42, 38, 39, 40 and 41's shapes),
 ``{"script": ...}`` and ``{"sim": {...}}`` lines, the card's name and power
 limit and, as the last line, ``{"ok": true, "device": {...}}``.
@@ -441,15 +459,19 @@ def call_ms(fn, reps: int = REPS) -> float:
     return (time.perf_counter() - t0) * 1e3 / reps
 
 
-def device_profile(fn):
+def device_profile(fn, host: bool = True):
     """Device kernel time of ``fn`` from a ``torch.profiler`` trace: total
     seconds and the five kernels that took most, or (None, []) when the
     trace holds no device time; and the trace's device kernel count with
-    the eight host ops that took most host time of their own."""
+    the eight host ops that took most host time of their own (none when
+    ``host`` is False: the trace then records device activity alone, the
+    same kernel seconds at a fraction of the tracing cost)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         fn()
         torch.cuda.synchronize()
     return profile_rows(prof)
@@ -914,9 +936,9 @@ def read_counters() -> dict:
 def mesh_twin_rows(shd, W, X, block, seg, cid, reps: int, label: str) -> dict:
     """Phase 19 for one twin at one shape: hold this rank's rows against the
     plain version on the whole buffer (f32 atol and rtol 1e-5), then time
-    the per-shard launch (ranks in turn), the all-reduce and the whole twin
-    (ranks together), beside the unsharded kernel, its plain version and
-    ``matmul`` (rank 0)."""
+    the per-shard launch and ``matmul`` on the same shard inputs (ranks in
+    turn), the all-reduce and the whole twin (ranks together), beside the
+    unsharded kernel, its plain version and ``matmul`` (rank 0)."""
     from repro_torch.launch import loopcost as LC
     import torch
     from repro_torch.kernels import aggregate as AGG
@@ -950,8 +972,10 @@ def mesh_twin_rows(shd, W, X, block, seg, cid, reps: int, label: str) -> dict:
     del got, want
     ms = rank_serial(lambda: None if shard_in is None else device_ms(
         lambda: AGG.aggregate(*shard_in), reps=reps))
+    lib_ms = rank_serial(lambda: None if shard_in is None else device_ms(
+        lambda: torch.matmul(*shard_in), reps=reps))
     row = {"shape": label, "rank": shd.rank, "seg": [lo, hi],
-           "max_abs_err": err, "shard_ms": ms,
+           "max_abs_err": err, "shard_ms": ms, "shard_library_ms": lib_ms,
            "allreduce_ms": wall_ms(lambda: shd.psum(part), dev, reps),
            "twin_ms": wall_ms(twin, dev, reps),
            "shard_bound_ms": b_ms, "shard_bound_by": b_by}
@@ -1403,10 +1427,10 @@ def pct_saved(dystop_v, base_v):
 def arena_phase() -> tuple:
     """Phase 22: the five Table-I mechanisms on the arena's headline cell,
     each on the card with the counters zeroed (``aggregate`` and
-    ``fused_sgd`` must launch), on the CPU (control plane identical,
-    ``acc_global`` within ``ARENA_CARD_CPU_TOL`` at every eval) and once
-    more on the card under the profiler (busy share over the first card
-    run's wall).  Returns the report and each mechanism's kernel shapes."""
+    ``fused_sgd`` must launch), on the CPU at one intra-op thread (control
+    plane identical, ``acc_global`` within ``ARENA_CARD_CPU_TOL`` at every
+    eval) and once more on the card under a device-only profiler (busy
+    share over the first card run's wall).  Returns the report and each mechanism's kernel shapes."""
     import numpy as np
     import torch
     from repro_torch.core.baselines import get_mechanism
@@ -1435,7 +1459,13 @@ def arena_phase() -> tuple:
         acc = np.asarray(card.acc_global)
         check(np.isfinite(acc).all() and np.isfinite(card.loss_global).all(),
               f"arena {name}: non-finite accuracy or loss")
-        cpu = run_simulation(get_mechanism(name, **kw), cfg, device="cpu")
+        threads = torch.get_num_threads()
+        torch.set_num_threads(1)       # faster for the cell's small ops
+        try:
+            cpu = run_simulation(get_mechanism(name, **kw), cfg,
+                                 device="cpu")
+        finally:
+            torch.set_num_threads(threads)
         for f in SIM_CONTROL:
             check(getattr(card, f) == getattr(cpu, f),
                   f"arena {name}: card and CPU differ in {f}")
@@ -1443,7 +1473,8 @@ def arena_phase() -> tuple:
         check(gap <= ARENA_CARD_CPU_TOL,
               f"arena {name}: card and CPU accuracy differ by {gap}")
         busy_s, top, _ = device_profile(
-            lambda: run_simulation(get_mechanism(name, **kw), cfg))
+            lambda: run_simulation(get_mechanism(name, **kw), cfg),
+            host=False)
         report[name] = {
             "rounds": len(card.round_durations),
             "sim_time_s": card.sim_time[-1], "comm_gb": card.comm_gb[-1],
@@ -3500,8 +3531,167 @@ def counted_phase(smi: str) -> tuple:
     return out, rows
 
 
+# phase 43: the tools' twins, each as a user runs it on the card: the
+# chaos check as a subprocess, each example in this process at its defaults
+# (its last printed line starts so; None: the federation's rows, checked
+# apart), and the kernels each example's path must launch
+EXAMPLES = {"quickstart": ("wall-clock: ", ("aggregate", "fused_sgd")),
+            "dfl_federation": (None, ("aggregate", "fused_sgd")),
+            "dfl_lm": ("engine: ", ("aggregate", "flash_attention")),
+            "serve_lm": ("greedy continuation: ", ("flash_attention",)),
+            "serving_engine": ("  req 3: ", ())}
+CHUNKED_LOSS_TOL = 2e-3            # paligemma's loss, chunked vs naive
+
+
+def chaos_phase(root: pathlib.Path) -> dict:
+    """Phase 43(a): ``scripts/torch_chaos_check.py --plane both --device
+    cuda`` as a subprocess (its snapshots under ``root``): exit 0 and
+    ``passed`` on both planes."""
+    import shutil
+    shutil.rmtree(root, ignore_errors=True)
+    root.mkdir(parents=True)
+    out = root / "chaos.json"
+    script = pathlib.Path(__file__).resolve().parent / "scripts" \
+        / "torch_chaos_check.py"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(script), "--plane", "both",
+                          "--device", "cuda", "--out", str(out)],
+                         env=dict(os.environ, TMPDIR=str(root)),
+                         capture_output=True, text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"torch_chaos_check exit {res.returncode}:\n"
+          f"{res.stdout[-3000:]}\n{res.stderr[-3000:]}")
+    art = json.loads(out.read_text())
+    recs = {r["plane"]: r for r in art["records"]}
+    check(art["passed"] and set(recs) == {"sim", "lm"}
+          and all(r["passed"] for r in recs.values()),
+          f"torch_chaos_check: {art}")
+    shutil.rmtree(root, ignore_errors=True)
+    for plane, r in recs.items():
+        print(f"chaos {plane}: killed_mid_run={r['killed_mid_run']}, "
+              f"resume_from={r['resume_from']}, final round "
+              f"{r['final_round']}", flush=True)
+    return {"wall_s": wall, "records": art["records"]}
+
+
+def examples_phase() -> dict:
+    """Phase 43(b): each ``examples/torch_*.py`` in this process through
+    ``runpy`` with ``sys.argv`` at its defaults (the card), the counters
+    zeroed just before and read just after: its last printed line, its
+    wall and the kernels its path launched; flash held on the inputs of
+    each of its shapes' first call against the plain version (2 bf16
+    ulps)."""
+    import io
+    import runpy
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    out = {}
+    for name, (last, kernels) in EXAMPLES.items():
+        path = pathlib.Path(__file__).resolve().parent / "examples" \
+            / f"torch_{name}.py"
+        buf, argv = io.StringIO(), sys.argv
+        kept, calls = {}, Counter()
+        sys.argv = [str(path)]
+        zero_counters()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        try:
+            with swapped(FA, "flash_attention",
+                         lambda fa: flash_keeper(kept, calls, fa)), \
+                    contextlib.redirect_stdout(buf):
+                runpy.run_path(str(path), run_name="__main__")
+            torch.cuda.synchronize()
+        finally:
+            sys.argv = argv
+        wall = time.perf_counter() - t0
+        launches = read_counters()
+        lines = buf.getvalue().strip().splitlines()
+        if last is None:
+            rows = [ln.split()[:2] for ln in lines[1:]
+                    if not ln.startswith("    ->")]
+            check(rows == [[m, phi] for phi in ("1.0", "0.4") for m in (
+                "dystop", "sa-adfl", "asydfl", "matcha")],
+                  f"example {name}: rows {rows}")
+        else:
+            check(bool(lines) and lines[-1].startswith(last),
+                  f"example {name}: last line {lines[-1:]}")
+        ran = sorted(k for k, v in launches.items() if v)
+        check(ran == sorted(kernels), f"example {name} launched {launches},"
+              f" expected {sorted(kernels)}")
+        ulps = 0.0
+        for key, (q, k, v) in kept.items():
+            _, _, _, _, causal, window, softcap = key
+            got = FA.flash_attention(q, k, v, causal, window, softcap)
+            want = FA.flash_attention_plain(q, k, v, causal, window, softcap)
+            ulps = max(ulps, bf16_ulps(got.float(), want.float()))
+        check(ulps <= 2.0, f"example {name}: flash {ulps} bf16 ulps off its "
+              f"plain version on the path's own inputs")
+        out[name] = {"wall_s": wall, "last_line": lines[-1],
+                     "launches": launches,
+                     "flash_shapes": {str(k_[1:]): c
+                                      for k_, c in calls.items()},
+                     "flash_max_bf16_ulps": ulps}
+        print(f"example torch_{name}: {wall:.2f} s, launches "
+              f"{ {k: v for k, v in launches.items() if v} }, last line: "
+              f"{lines[-1]}", flush=True)
+        del kept
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def chunked_loss_phase(dev) -> dict:
+    """Phase 43(c): paligemma-3b's loss at phase 31's full width with
+    ``attn_impl="chunked"`` and with the naive einsum (the same params and
+    feed), forward and backward: both finite, within
+    ``CHUNKED_LOSS_TOL``, no kernel launched, and ``chunked_attention``
+    called once per layer under "chunked" and never under "naive" (the
+    losses alone cannot tell the two paths apart)."""
+    from repro_torch.configs import paligemma_3b
+    from repro_torch.models import layers as LAYERS
+    out = {}
+    for impl in ("chunked", "naive"):
+        cfg = dataclasses.replace(paligemma_3b.get_config(), attn_impl=impl)
+        kept, calls, chunked = {}, Counter(), Counter()
+
+        def counting(fn):
+            def wrapped(*a, **k):
+                chunked["calls"] += 1
+                return fn(*a, **k)
+            return wrapped
+
+        with swapped(LAYERS, "chunked_attention", counting):
+            out[impl] = full_loss_phase(cfg, f"paligemma attn_impl={impl}",
+                                        VLM_LOSS["batch"], VLM_LOSS["text"],
+                                        dev, kept, calls)
+        check(not any(out[impl]["launches"].values()) and not kept,
+              f"a kernel launched on the {impl} prefix-LM path: "
+              f"{out[impl]['launches']}")
+        want = cfg.n_layers if impl == "chunked" else 0
+        check(chunked["calls"] == want,
+              f"attn_impl={impl}: chunked_attention called "
+              f"{chunked['calls']} times, expected {want}")
+        out[impl]["chunked_attention_calls"] = chunked["calls"]
+    gap = abs(out["chunked"]["loss"] - out["naive"]["loss"])
+    check(gap <= CHUNKED_LOSS_TOL, f"paligemma chunked vs naive loss: {gap}")
+    out["loss_gap"] = gap
+    out["attn_chunk"] = paligemma_3b.get_config().attn_chunk
+    print(f"paligemma chunked vs naive: loss gap {gap:.3g}, chunked_attention"
+          f" calls {out['chunked']['chunked_attention_calls']} / "
+          f"{out['naive']['chunked_attention_calls']}", flush=True)
+    return out
+
+
 def main() -> int:
     t_script = time.perf_counter()
+    phase_starts = {}
+
+    def lap(phase: str) -> None:
+        """Note when ``phase`` starts, in s since the script's start (the
+        ``{"script"}`` line), so a slice that must cut depth can see where
+        the script's time goes."""
+        phase_starts[phase] = time.perf_counter() - t_script
+
     # phase 26's fleet all but fills the card: with fixed-size segments the
     # blocks one round frees are not reused by the next round's larger
     # ones (it ran out with 8 GB reserved but unallocated)
@@ -3547,6 +3737,7 @@ def main() -> int:
     print(f"card: {smi}", flush=True)
 
     # ---- 1. build -----------------------------------------------------------
+    lap("1")
     t0 = time.perf_counter()
     _build.build()
     print(f"build: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3562,6 +3753,7 @@ def main() -> int:
     gen = torch.Generator().manual_seed(1234)
 
     # ---- 2. each kernel against its plain version --------------------------
+    lap("2")
     buckets = (8, 16, 32, 64, N_WORKERS)
     X = torch.randn((N_WORKERS, P), generator=gen).to(dev)
     agg_err = 0.0
@@ -3670,6 +3862,7 @@ def main() -> int:
           f"memory each", flush=True)
 
     # ---- 2b. aggregate past 2^31 columns -----------------------------------
+    lap("2b")
     big_p = 2 ** 31 + 4096
     Xb = torch.empty((2, big_p), device=dev)
     Xb.normal_(generator=torch.Generator(dev).manual_seed(7))
@@ -3708,6 +3901,7 @@ def main() -> int:
           flush=True)
 
     # ---- 3. the main path, through the kernels -----------------------------
+    lap("3")
     shapes: Counter = Counter()
     orig_agg, orig_sgd = AGG.aggregate, FSGD.fused_sgd
     orig_fa = FA.flash_attention
@@ -3735,6 +3929,7 @@ def main() -> int:
           flush=True)
 
     # ---- 4. times at the main path's shapes --------------------------------
+    lap("4")
     def agg_row(k, u, col, count):
         W, cid = agg_case(gen, k, u, N_WORKERS, col, dev)
         lib_cid = None if cid is None else cid.long()
@@ -3805,6 +4000,7 @@ def main() -> int:
               f"{sgd_floor['torch_add_ms']:.5f})", flush=True)
 
     # ---- 5. the card and the CPU agree --------------------------------------
+    lap("5")
     short = SimConfig(n_rounds=60)
     h_card = run_simulation(DySTop(V=10.0, t_thre=20), short)
     h_cpu = run_simulation(DySTop(V=10.0, t_thre=20), short, device="cpu")
@@ -3819,12 +4015,14 @@ def main() -> int:
           f"max |acc gap| {acc_gap:.2e}", flush=True)
 
     # ---- 6. how busy the card is on the main path --------------------------
+    lap("6")
     busy_s, busy_top, _ = device_profile(
         lambda: run_simulation(DySTop(V=10.0, t_thre=20), cfg))
     print(f"main path under the profiler: device kernels "
           f"{busy_s if busy_s is None else round(busy_s, 4)} s", flush=True)
 
     # ---- 7. the flash kernel against its plain version --------------------
+    lap("7")
     flash_err = flash_ulps = 0.0
     both, bf16_only = (torch.bfloat16, torch.float32), (torch.bfloat16,)
     fa_cases = [("path", (4, 9, 256, 64), 3, True, None, None, both),
@@ -3902,6 +4100,7 @@ def main() -> int:
     sys.stdout.flush()
 
     # ---- 8. the LM fleet's main path at full width, through the kernels ----
+    lap("8")
     lm_cfg = smollm_135m.get_config()
     lm_run = LW.LMRunConfig(n_workers=8, n_rounds=30, batch=4, seq=256,
                             optimizer="adam", lr=1e-3, eval_every=5)
@@ -3936,6 +4135,7 @@ def main() -> int:
           f"{lossg[-1]:.4f}", flush=True)
 
     # ---- 9. times at the LM path's shapes ----------------------------------
+    lap("9")
     fa_key, fa_count = max(((s, c) for s, c in lm_shapes.items()
                             if s[0] == "flash_attention"),
                            key=lambda sc: sc[1])
@@ -3995,9 +4195,11 @@ def main() -> int:
     lm_busy = lm_profile(lm_mech(), lm_cfg, lm_run)
 
     # ---- 10. the card and the CPU agree on the LM plane --------------------
+    lap("10")
     lm_gap = lm_card_vs_cpu(lm_mech, smollm_135m.get_smoke_config(), "LM")
 
     # ---- 11. the ssd_chunk kernel against its plain version ---------------
+    lap("11")
     check(not torch.backends.cuda.matmul.allow_tf32,
           "the plain versions must run IEEE f32 products")
     ssd_err = 0.0
@@ -4051,6 +4253,7 @@ def main() -> int:
     del ins, got, want, Bc, Cc, xb
 
     # ---- 12. the mamba2 LM path at full width, through the kernels --------
+    lap("12")
     m_cfg = dataclasses.replace(mamba2_2_7b.get_config(), n_layers=8)
     m_run = LW.LMRunConfig(n_workers=8, n_rounds=30, batch=4, seq=512,
                            optimizer="adam", lr=1e-3, eval_every=5)
@@ -4101,6 +4304,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 13. ssd_chunk timed at the path's commonest shape ----------------
+    lap("13")
     ssd_key, ssd_count = max(((s_, c) for s_, c in m_shapes.items()
                               if s_[0] == "ssd_chunk"), key=lambda sc: sc[1])
     _, g_, h_, q_, n_, p_ = ssd_key
@@ -4118,10 +4322,12 @@ def main() -> int:
           flush=True)
 
     # ---- 14. the card and the CPU agree on the mamba2 smoke geometry -------
+    lap("14")
     m_gap = lm_card_vs_cpu(lm_mech, mamba2_2_7b.get_smoke_config(), "mamba2")
     torch.cuda.empty_cache()
 
     # ---- 15. the moe_router kernel against its plain version --------------
+    lap("15")
     router_err = 0.0
     router_cases = [(t_, e_, k_, False) for t_, e_, k_ in (
         (8, 8, 2), (4096, 8, 2), (4096, 384, 8), (300, 8, 2))]
@@ -4146,6 +4352,7 @@ def main() -> int:
               f"|gate err| {err:.3e}", flush=True)
 
     # ---- 16. serving grok-1-314b at full width, through the kernels -------
+    lap("16")
     for mod in (AGG, FSGD, FA, SC, MR):
         mod.launches = 0
     g_cfg = dataclasses.replace(grok_1_314b.get_config(), n_layers=4)
@@ -4213,6 +4420,7 @@ def main() -> int:
           "the profiled drive served other tokens")
 
     # ---- 17. moe_router timed at the path's shape and kimi's --------------
+    lap("17")
     router_rows = []
     x1 = torch.ones((1, 1), device=dev)          # a call with no work
     router_floor = {"ms": device_ms(lambda: MR.moe_router(x1, 1)),
@@ -4238,6 +4446,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 18. the card and the CPU agree on serving -------------------------
+    lap("18")
     serve_gaps = {label: serve_card_vs_cpu(c, label) for label, c in (
         ("grok", grok_1_314b.get_smoke_config()),
         ("smollm", smollm_135m.get_smoke_config()),
@@ -4251,6 +4460,7 @@ def main() -> int:
           "recurrentgemma's card-vs-CPU requests stay inside the window")
 
     # ---- 19-21. the fleet mesh: gloo ranks sharing the card ----------------
+    lap("19-21")
     from repro_torch.launch import mesh as MESH
     lm10 = dataclasses.replace(lm_run, n_rounds=10)
     torch.cuda.empty_cache()
@@ -4287,48 +4497,54 @@ def main() -> int:
         del ranks
 
     # ---- 22. the arena's headline cell: the five Table-I mechanisms ------
+    lap("22")
     torch.cuda.empty_cache()
     arena, arena_shapes = arena_phase()
     arena_agg_rows, arena_sgd_rows = arena_kernel_rows(arena_shapes, gen,
                                                        spec, dev)
 
     # ---- 23. the convergence bound, card vs CPU ---------------------------
+    lap("23")
     bound = bound_phase()
 
     # ---- 24. a SIGKILL mid-run, and the resume -----------------------------
+    lap("24")
     sigkill = sigkill_phase(build_dir / "chip_smoke_sigkill")
 
     # ---- 25. LM snapshot -> resume -> serve --------------------------------
+    lap("25")
     torch.cuda.empty_cache()
     lm_snap = lm_snapshot_phase(build_dir / "chip_smoke_lm_snapshots")
 
     # ---- 26. the hybrid LM fleet at full width, 3 of 26 layers -------------
-    t_new = time.perf_counter()
+    lap("26")
     hybrid, hy_flash, hy_agg = hybrid_fleet_phase(gen, dev, lm_mech)
     flash_ulps = max(flash_ulps, hy_flash["max_bf16_ulps"])
     agg_err = max(agg_err, hy_agg["max_abs_err"])
 
     # ---- 27. the hybrid smoke geometry, card vs CPU (seq 128 > window 64) --
+    lap("27")
     hybrid["card_vs_cpu_loss_gap"] = lm_card_vs_cpu(
         lm_mech, recurrentgemma_2b.get_smoke_config(), "hybrid", seq=128)
 
     # ---- 28. serving recurrentgemma-2b at full size ------------------------
+    lap("28")
     hybrid["serving"] = full_serve_phase(recurrentgemma_2b.get_config(),
                                          "recurrentgemma")
     hybrid["serving"]["card_vs_cpu"] = serve_gaps["recurrentgemma"]
 
     # ---- 29. training the moe family ---------------------------------------
+    lap("29")
     moe_train, moe_row = moe_train_phase(gen, dev, lm_mech)
-    new_phases_s = time.perf_counter() - t_new
-    print(f"phases 26-29: {new_phases_s:.1f} s", flush=True)
 
     # ---- 30. serving paligemma-3b at full size (text only) -----------------
-    t_stub = time.perf_counter()
+    lap("30")
     from repro_torch.configs import paligemma_3b, seamless_m4t_medium
     vlm = {"serving": full_serve_phase(paligemma_3b.get_config(),
                                        "paligemma")}
 
     # ---- 31. paligemma-3b's loss at full width, 256 stub prefix tokens -----
+    lap("31")
     vlm_kept, vlm_calls = {}, Counter()
     vlm["loss"] = full_loss_phase(paligemma_3b.get_config(), "paligemma",
                                   VLM_LOSS["batch"], VLM_LOSS["text"], dev,
@@ -4340,14 +4556,17 @@ def main() -> int:
           f"{vlm['loss']['launches']}")
 
     # ---- 32. the vlm smoke geometry, card vs CPU ---------------------------
+    lap("32")
     vlm["card_vs_cpu"] = family_card_vs_cpu(
         paligemma_3b.get_smoke_config(), "paligemma", seq=48)
 
     # ---- 33. serving seamless-m4t-medium at full size ----------------------
+    lap("33")
     ed_kept, ed_calls = {}, Counter()
     encdec = {"serving": encdec_serve_phase(ed_kept, ed_calls)}
 
     # ---- 34. seamless-m4t-medium's loss at full width ----------------------
+    lap("34")
     sm_cfg = seamless_m4t_medium.get_config()
     encdec["loss"] = full_loss_phase(sm_cfg, "seamless",
                                      ENCDEC_LOSS["batch"], ENCDEC_LOSS["seq"],
@@ -4372,42 +4591,54 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 35. the enc-dec smoke geometry, card vs CPU -----------------------
+    lap("35")
     encdec["card_vs_cpu"] = family_card_vs_cpu(
         seamless_m4t_medium.get_smoke_config(), "seamless", seq=64)
-    stub_phases_s = time.perf_counter() - t_stub
-    print(f"phases 30-35: {stub_phases_s:.1f} s", flush=True)
 
     # ---- 36. the legacy sim path at the defaults ---------------------------
-    t_leg = time.perf_counter()
+    lap("36")
     legacy, legacy_agg_rows = legacy_sim_phase(hist, dev)
 
     # ---- 37. the legacy sim path, card vs CPU, and its resume --------------
+    lap("37")
     legacy["card_vs_cpu_and_resume"] = legacy_card_cpu_phase(
         build_dir / "chip_smoke_legacy")
 
     # ---- 38. the legacy LM path, smollm-135m at full width -----------------
+    lap("38")
     legacy["lm"], legacy_flash = legacy_lm_phase(
         lm_mech, lm_cfg, dataclasses.replace(lm_run, n_rounds=10))
 
     # ---- 39. the trainer ---------------------------------------------------
+    lap("39")
     train, train_flash = train_phase(build_dir / "chip_smoke_train")
-    legacy_phases_s = time.perf_counter() - t_leg
-    print(f"phases 36-39: {legacy_phases_s:.1f} s", flush=True)
 
     # ---- 40. activation recomputation on the trainer at full width ---------
-    t_pods = time.perf_counter()
+    lap("40")
     remat, remat_flash = remat_phase()
 
     # ---- 41. the pods plane: stacked and 4 gloo ranks ----------------------
+    lap("41")
     pods, pods_agg_rows, pods_flash = pods_phase()
-    pods_phases_s = time.perf_counter() - t_pods
-    print(f"phases 40-41: {pods_phases_s:.1f} s", flush=True)
 
     # ---- 42. a counted step against its time -------------------------------
-    t_counted = time.perf_counter()
+    lap("42")
     counted, counted_rows = counted_phase(smi)
-    counted_phase_s = time.perf_counter() - t_counted
-    print(f"phase 42: {counted_phase_s:.1f} s", flush=True)
+
+    # ---- 43. the chaos twin, the examples, the chunked prefix-LM ----------
+    lap("43")
+    tools = {"chaos": chaos_phase(build_dir / "chip_smoke_chaos"),
+             "examples": examples_phase(),
+             "chunked_vlm_loss": chunked_loss_phase(dev)}
+    lap("end")
+    # each group of later phases' wall, from when it and the next began
+    group_walls = {f"{key}_wall_s": phase_starts[b] - phase_starts[a]
+                   for key, a, b in (("phases_26_29", "26", "30"),
+                                     ("phases_30_35", "30", "36"),
+                                     ("phases_36_39", "36", "40"),
+                                     ("phases_40_41", "40", "42"),
+                                     ("phase_42", "42", "43"),
+                                     ("phase_43", "43", "end"))}
 
     new_flash = list(ed_rows.values()) + [legacy_flash, train_flash,
                                           remat_flash, pods_flash]
@@ -4658,13 +4889,11 @@ def main() -> int:
     print(json.dumps({"pods": {**pods, "aggregate": pods_agg_rows,
                                "flash": pods_flash}}))
     print(json.dumps({"counted": counted}))
+    print(json.dumps({"tools": tools}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"script": {"wall_s": time.perf_counter() - t_script,
-                                 "phases_26_29_wall_s": new_phases_s,
-                                 "phases_30_35_wall_s": stub_phases_s,
-                                 "phases_36_39_wall_s": legacy_phases_s,
-                                 "phases_40_41_wall_s": pods_phases_s,
-                                 "phase_42_wall_s": counted_phase_s}}))
+                                 **group_walls,
+                                 "phase_starts_s": phase_starts}}))
     print(json.dumps({"sim": {
         "config": "SimConfig() defaults, DySTop(V=10.0, t_thre=20)",
         "rounds": hist.rounds[-1], "evals": len(hist.rounds),

@@ -67,11 +67,15 @@ class ModelConfig:
     frontend: Optional[str] = None     # vision | audio | None
     # --- misc ---
     mlp_activation: str = "silu"       # silu (SwiGLU) | gelu (GeGLU)
-    attn_impl: str = "naive"           # naive (einsum) | chunked (online softmax)
+    attn_impl: str = "naive"           # naive (einsum) | chunked (online
+                                       # softmax); read only where flash
+                                       # does not run: the prefix-LM's self-
+                                       # attention (models/layers.py)
     attn_chunk: int = 512              # kv block for attn_impl="chunked"
-    kernels: KernelConfig = KernelConfig()  # the port's kernel tiles; the
-                                       # forward pass always goes through
-                                       # the zoo kernels (plain backward)
+    kernels: KernelConfig = KernelConfig()  # the port's kernel tiles; a
+                                       # CUDA tensor runs the zoo kernels
+                                       # where the reference's Pallas
+                                       # backend would (plain backward)
     norm_eps: float = 1e-6
     tie_embeddings: bool = True
     post_norm: bool = False            # gemma2-style extra post-block norms

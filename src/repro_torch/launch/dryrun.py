@@ -15,7 +15,10 @@ This is the port of ``repro.launch.dryrun``, whose lower-and-compile is
 replaced by the counted ``meta`` run: the JSON has the JAX package's keys
 without ``memory_analysis``, ``lower_s``, ``compile_s`` and
 ``loop_corrections`` (no compiler, no loop to correct), plus ``trace_s``
-(the counted run's wall time) and ``mesh_devices``.  The step is the same
+(the counted run's wall time), ``mesh_devices``, the keywords of
+``run_one`` (``attn_impl``, ``rule_overrides``, ``tag``, ``paper_ctx``)
+and the effective ``rules``, so a ladder's records say what each rung
+changed.  The step is the same
 unsharded program on every mesh, so one process counts it once per
 (arch, shape) and reuses the count across meshes.
 
@@ -27,11 +30,13 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import pathlib
 import sys
 import time
 import traceback
+from typing import Optional
 
 from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.launch import analysis as A
@@ -45,7 +50,7 @@ OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" \
     / "dryrun_torch"
 MESHES = ("single", "multi", "host")
 
-_COSTS: dict = {}     # (arch, shape, mode, optimizer, local_steps) -> counts
+_COSTS: dict = {}     # (config, shape, mode, optimizer, local_steps) -> counts
 
 
 def _mesh(name: str):
@@ -55,15 +60,34 @@ def _mesh(name: str):
 
 
 def run_one(arch: str, shape_name: str, mesh_name: str,
-            optimizer_name: str = "adam", paper_mode: bool = False,
-            local_steps: int = 1, verbose: bool = True,
-            out_dir: pathlib.Path = OUT_DIR) -> dict:
+            optimizer_name: str = "adam", rule_overrides=None, tag: str = "",
+            verbose: bool = True, paper_mode: bool = False,
+            attn_impl: Optional[str] = None, paper_ctx: bool = True,
+            local_steps: int = 1, out_dir: pathlib.Path = OUT_DIR) -> dict:
     """Count ``arch``'s step at ``shape_name`` on ``mesh_name`` ("single",
     "multi" or "host"), write its roofline JSON under ``out_dir`` and
     return it (or a record with ``"skipped"``: long_500k without a
     sub-quadratic path, or a decode shape in paper mode, whose round step
-    trains)."""
+    trains).
+
+    The keywords mean what they mean to ``repro.launch.dryrun.run_one``:
+    ``rule_overrides`` replaces logical-axis rules in the artifacts' specs
+    (in paper mode the round's builder keeps ``{"data": ("data",)}`` over
+    it; the record's ``rules`` are those the specs were made with);
+    ``attn_impl`` replaces the config's (``dataclasses.replace``); ``tag`` adds
+    ``_{tag}`` to the file name (paper mode writes ``_dystop`` when no tag
+    is given); ``paper_ctx`` turns the sharding-rules context of the
+    paper-mode round on or off.  Each is written into the record.  Some
+    cannot change a count here, and are accepted all the same so the
+    reference's ladders run unchanged: the count is of one unsharded step,
+    so ``rule_overrides`` moves only the resident bytes a device holds;
+    ``paper_ctx`` moves nothing, since ``constrain`` is the identity on one
+    device and there is no collective term; ``attn_impl="chunked"`` moves
+    only a prefix-LM's count, since every other self-attention runs the
+    flash kernel whatever it says."""
     cfg = R.get_config(arch)
+    if attn_impl:
+        cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
     shape = INPUT_SHAPES[shape_name]
     if shape_name == "long_500k" and not R.long_context_capable(cfg):
         return {"arch": arch, "shape": shape_name,
@@ -78,19 +102,23 @@ def run_one(arch: str, shape_name: str, mesh_name: str,
     opt = get_optimizer(optimizer_name)
     if paper_mode:
         art = S.build_dystop_artifacts(cfg, shape, mesh, opt, remat=True,
-                                       local_steps=local_steps)
+                                       local_steps=local_steps,
+                                       rule_overrides=rule_overrides)
         mode = "dystop_round"
     elif shape.mode == "train":
-        art = S.build_train_artifacts(cfg, shape, mesh, opt, remat=True)
+        art = S.build_train_artifacts(cfg, shape, mesh, opt, remat=True,
+                                      rule_overrides=rule_overrides)
         mode = "train"
     elif shape.mode == "prefill":
-        art = S.build_prefill_artifacts(cfg, shape, mesh)
+        art = S.build_prefill_artifacts(cfg, shape, mesh,
+                                        rule_overrides=rule_overrides)
         mode = "prefill"
     else:
-        art = S.build_serve_artifacts(cfg, shape, mesh)
+        art = S.build_serve_artifacts(cfg, shape, mesh,
+                                      rule_overrides=rule_overrides)
         mode = "serve"
 
-    key = (arch, shape_name, mode, optimizer_name, local_steps)
+    key = (cfg, shape_name, mode, optimizer_name, local_steps)
     if key not in _COSTS:
         t0 = time.perf_counter()
         costs = LC.step_costs(art.step_fn, *art.abstract_args)
@@ -102,6 +130,12 @@ def run_one(arch: str, shape_name: str, mesh_name: str,
     rec["mesh_devices"] = mesh.n_devices
     rec["optimizer"] = optimizer_name if mode in ("train",
                                                   "dystop_round") else None
+    rec["attn_impl"] = cfg.attn_impl
+    rec["rule_overrides"] = rule_overrides
+    rec["rules"] = {k: None if v is None else list(v)
+                    for k, v in art.rules.items()}
+    rec["tag"] = tag
+    rec["paper_ctx"] = paper_ctx
     if verbose:
         t_coll = rec["t_collective"]
         print(f"--- {arch} x {shape_name} x {mesh_name} ({mode}) ---")
@@ -116,7 +150,7 @@ def run_one(arch: str, shape_name: str, mesh_name: str,
               f"useful_flops={rec['useful_flops_ratio']:.3f} "
               f"(counted in {trace_s:.1f}s)")
     out_dir.mkdir(parents=True, exist_ok=True)
-    suffix = "_dystop" if paper_mode else ""
+    suffix = f"_{tag}" if tag else "_dystop" if paper_mode else ""
     (out_dir / f"{arch}_{shape_name}_{mesh_name}{suffix}.json").write_text(
         json.dumps(rec, indent=1))
     return rec

@@ -210,12 +210,14 @@ def cache_logical_axes(cfg: ModelConfig, cache_shapes) -> Any:
 
 @dataclasses.dataclass
 class TrainArtifacts:
-    """A step function with its arguments as ``meta`` tensors and the
-    specs of its inputs and outputs (trees of ``PartitionSpec``)."""
+    """A step function with its arguments as ``meta`` tensors, the specs
+    of its inputs and outputs (trees of ``PartitionSpec``) and the
+    logical-axis rules those specs were made with."""
     step_fn: Any
     abstract_args: Tuple[Any, ...]
     in_shardings: Tuple[Any, ...]
     out_shardings: Any
+    rules: SR.Rules
 
 
 def _metrics_specs():
@@ -241,21 +243,24 @@ def build_train_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
         step_fn=make_train_step(cfg, optimizer, remat=remat),
         abstract_args=(params, opt_state, batch),
         in_shardings=(params_sh, opt_sh, batch_sh),
-        out_shardings=(params_sh, opt_sh, _metrics_specs()))
+        out_shardings=(params_sh, opt_sh, _metrics_specs()),
+        rules=rules)
 
 
 def build_dystop_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
                            optimizer: Optimizer, remat: bool = True,
-                           local_steps: int = 1) -> TrainArtifacts:
+                           local_steps: int = 1,
+                           rule_overrides: Optional[dict] = None
+                           ) -> TrainArtifacts:
     """The pods-as-workers round step (``make_dystop_round_step``, every
     pod in this process): each params and optimizer-state leaf with a
     leading pod axis over ``"pod"`` and the per-pod fsdp/tensor layout
     behind it; the global batch split over the pods as (pods, local_steps,
     B / pods, ...); the (pods, pods) mixing matrix replicated.  ``"data"``
     maps to the data axis alone inside a pod (``"pod"`` is the replica
-    axis)."""
+    axis), over any other ``rule_overrides``."""
     n_pods = mesh.shape["pod"]
-    rules = _rules({"data": ("data",)})
+    rules = _rules({**(rule_overrides or {}), "data": ("data",)})
     params, param_axes = R.abstract_params(cfg)
     opt_state = optimizer.init(params)
     opt_axes = optimizer.state_axes(param_axes)
@@ -287,7 +292,8 @@ def build_dystop_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
         abstract_args=(sp, so, sb, _meta((n_pods, n_pods), torch.float32)),
         in_shardings=(params_sh, opt_sh, shard(batch_axes, sb, 2),
                       SR.PartitionSpec()),
-        out_shardings=(params_sh, opt_sh, _metrics_specs()))
+        out_shardings=(params_sh, opt_sh, _metrics_specs()),
+        rules=rules)
 
 
 def build_prefill_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
@@ -307,7 +313,8 @@ def build_prefill_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
         in_shardings=(shardings_from_axes(param_axes, params, mesh, rules),
                       shardings_from_axes(R.batch_logical_axes(cfg, shape),
                                           batch, mesh, rules)),
-        out_shardings=logits_sh)
+        out_shardings=logits_sh,
+        rules=rules)
 
 
 def build_serve_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
@@ -330,4 +337,5 @@ def build_serve_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
                       cache_sh,
                       SR.logical_spec(("data", None), token.shape, mesh,
                                       rules)),
-        out_shardings=(logits_sh, cache_sh))
+        out_shardings=(logits_sh, cache_sh),
+        rules=rules)

@@ -16,10 +16,12 @@ Conventions, as in the JAX package:
 
 Attention on the self-attention train/prefill branch goes through
 ``kernels.ops.flash_attention_diff`` (the CUDA kernel on the card, its plain
-version on the CPU), causal or not (the enc-dec encoder's).  A decode step
-against a cache, cross-attention and a bidirectional prefix (the prefix-LM)
-are einsums, as in the JAX package, which keeps all three off its Pallas
-path too.  The sharding hints of the JAX package (``constrain``) are the
+version on the CPU), causal or not (the enc-dec encoder's), whatever
+``cfg.attn_impl`` says.  A decode step against a cache, cross-attention and
+a bidirectional prefix (the prefix-LM) are einsums, as in the JAX package,
+which keeps all three off its Pallas path too; the prefix-LM with
+``attn_impl="chunked"`` runs ``chunked_attention``, the reference's online
+softmax over kv blocks, in plain PyTorch.  The sharding hints of the JAX package (``constrain``) are the
 identity on one card and are not threaded through the model code (the
 sharded execution item of the roadmap).
 """
@@ -245,6 +247,60 @@ def cached_attention(cfg: ModelConfig, wo: torch.Tensor, q: torch.Tensor,
                                                               wo.shape[-1])
 
 
+def chunked_attention(cfg: ModelConfig, wo: torch.Tensor, q: torch.Tensor,
+                      k: torch.Tensor, v: torch.Tensor,
+                      spec: AttnSpec) -> torch.Tensor:
+    """Online-softmax self-attention over ``cfg.attn_chunk``-row kv blocks
+    (``repro.models.layers._chunked_attention``), then the out-projection.
+    q (B, S, H, hd) against k, v (B, S, Hk, hd), positions 0..S-1: kv is
+    padded to a whole block; q, scaled by ``hd ** -0.5``, and each block
+    go to f32 before the product; softcap, then the causal / prefix /
+    window / padding mask with the -1e30 fill; the running max, sum and
+    accumulator stay f32, masked entries add zero (a fully masked row
+    stays at zero), and the output is cast to v's dtype only at the end.
+    Plain PyTorch: the reference runs it off its Pallas path."""
+    b, sq, _, hd = q.shape
+    n, g = cfg.n_kv_heads, cfg.q_per_kv
+    sk = k.shape[1]
+    blk = min(cfg.attn_chunk, sk)
+    pad = (-sk) % blk
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    qf = q.reshape(b, sq, n, g, hd).float() * hd ** -0.5
+    rows = torch.arange(sq, dtype=torch.int32, device=q.device)[:, None]
+    m = torch.full((b, n, sq, g), -1e30, device=q.device)
+    l = torch.zeros((b, n, sq, g), device=q.device)
+    acc = torch.zeros((b, n, sq, g, hd), device=q.device)
+    for start in range(0, sk + pad, blk):
+        s = torch.einsum("bsngk,btnk->bnsgt", qf,
+                         k[:, start:start + blk].float())
+        if spec.softcap is not None:
+            s = torch.tanh(s / spec.softcap) * spec.softcap
+        cols = start + torch.arange(blk, dtype=torch.int32,
+                                    device=q.device)[None, :]
+        mask = (cols < sk).expand(sq, blk)
+        if spec.causal:
+            mask = mask & (cols <= rows)
+            if spec.prefix_len:
+                mask = mask | ((rows < spec.prefix_len)
+                               & (cols < spec.prefix_len) & (cols < sk))
+        if spec.window is not None:
+            mask = mask & ((rows - cols) < spec.window)
+        s = torch.where(mask[None, None, :, None, :], s, -1e30)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        p = torch.where(s > -1e29, p, 0.0)
+        alpha = torch.exp(m - m_new)
+        l = alpha * l + p.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bnsgt,btnk->bnsgk", p, v[:, start:start + blk].float())
+        m = m_new
+    out = (acc / torch.clamp(l, min=1e-30)[..., None]).transpose(1, 2)
+    return out.to(v.dtype).reshape(b, sq, cfg.n_heads * hd) @ wo.reshape(
+        -1, wo.shape[-1])
+
+
 def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
                         spec: AttnSpec, positions: torch.Tensor,
                         kv_x: Optional[torch.Tensor] = None,
@@ -255,9 +311,11 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     reads kv head h // G, the order of the JAX package's grouped reshape.
 
     Without a cache it runs over the full sequence (train/prefill) through
-    the flash kernel and returns no cache; with ``spec.prefix_len`` (the
-    prefix-LM's bidirectional prefix) through plain attention on the
-    (Sq, Sk) mask of ``attn_mask``.  With ``kv_x`` (B, Sk, D) it is
+    the flash kernel and returns no cache, whatever ``cfg.attn_impl``
+    says (the JAX package's branch order under its Pallas backend); with
+    ``spec.prefix_len`` (the prefix-LM's bidirectional prefix) through
+    ``chunked_attention`` when ``cfg.attn_impl == "chunked"``, else plain
+    attention on the (Sq, Sk) mask of ``attn_mask``.  With ``kv_x`` (B, Sk, D) it is
     cross-attention: q from x, k and v from ``kv_x``, no rope on either
     side and no mask, plain attention.  With ``cache`` {k, v (B, W, Hk,
     hd)} it is one step of x (B, Sq, D) at ``cache_pos``: the new keys and
@@ -284,6 +342,8 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
         y = cached_attention(cfg, p["wo"], q, cache["k"], cache["v"],
                              mask[:, None, :, None, :], spec.softcap)
         return y, {"k": cache["k"], "v": cache["v"]}
+    if spec.prefix_len and cfg.attn_impl == "chunked":
+        return chunked_attention(cfg, p["wo"], q, k, v, spec), None
     if spec.prefix_len:
         # batch-free (Sq, Sk) mask, as the JAX package builds it
         iota = torch.arange(s, dtype=torch.int32, device=x.device)

@@ -2,10 +2,14 @@
 (``launch.loopcost.step_costs``) against ``jaxpr_costs(scan_once=False)``,
 each kernel's cost formula against ``PERF.md``'s bounds, the model FLOPs
 estimate (``launch.analysis``), the same step counted on ``meta`` and on
-the CPU, and ``launch.dryrun.run_one`` at full width on ``meta``.
+the CPU, ``launch.dryrun.run_one`` at full width on ``meta`` with the
+reference's keywords, and the ladder and table scripts
+(``scripts/torch_perf_hillclimb.py``, ``scripts/torch_gen_roofline_md.py``).
 """
+import importlib.util
 import json
 import math
+import pathlib
 
 import pytest
 import torch
@@ -18,6 +22,7 @@ from repro_torch.launch import steps as T_S
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import registry as T_R
 from repro_torch.optim import get_optimizer
+from repro_torch.sharding import rules as T_SR
 from test_torch_resume import _one_torch_thread  # noqa: F401
 
 pytest.importorskip("jax")
@@ -37,7 +42,8 @@ ROOF_KEYS = {"arch", "shape", "mesh", "mode", "flops_per_device",
              "collectives", "collective_bytes_by_kind",
              "peak_memory_per_device", "model_flops", "t_compute",
              "t_memory", "t_collective", "bottleneck", "useful_flops_ratio",
-             "optimizer", "trace_s", "mesh_devices"}
+             "optimizer", "trace_s", "mesh_devices", "attn_impl",
+             "rule_overrides", "rules", "tag", "paper_ctx"}
 
 
 def _loop(x, w):
@@ -243,3 +249,89 @@ def test_run_one_paper_mode(tmp_path):
     assert "skipped" in T_D.run_one("smollm-135m", "decode_32k", "multi",
                                     paper_mode=True, verbose=False,
                                     out_dir=tmp_path)
+
+
+def _script(name):
+    path = pathlib.Path(__file__).resolve().parents[1] / "scripts" / \
+        f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_run_one_takes_the_reference_keywords(tmp_path):
+    """``rule_overrides``, ``attn_impl``, ``tag`` and ``paper_ctx`` are
+    accepted with the reference's meaning and written into the record; the
+    tag names the file.  On the prefix-LM ``attn_impl="chunked"`` moves the
+    count; the rules move the resident bytes a device holds, not the
+    count."""
+    kw = dict(verbose=False, out_dir=tmp_path)
+    base = T_D.run_one("paligemma-3b", "train_4k", "single", **kw)
+    rec = T_D.run_one("paligemma-3b", "train_4k", "single",
+                      rule_overrides={"embed": None}, attn_impl="chunked",
+                      tag="kw", paper_ctx=False, **kw)
+    path = tmp_path / "paligemma-3b_train_4k_single_kw.json"
+    assert json.loads(path.read_text()) == rec
+    assert (rec["attn_impl"], rec["rule_overrides"], rec["tag"],
+            rec["paper_ctx"]) == ("chunked", {"embed": None}, "kw", False)
+    assert (base["attn_impl"], base["rule_overrides"], base["tag"],
+            base["paper_ctx"]) == ("naive", None, "", True)
+    defaults = {k: None if v is None else list(v)
+                for k, v in T_SR.DEFAULT_RULES.items()}
+    assert base["rules"] == defaults
+    assert rec["rules"] == {**defaults, "embed": None}
+    assert rec["bytes_per_device"] != base["bytes_per_device"]
+    assert rec["peak_memory_per_device"] > base["peak_memory_per_device"]
+    same = T_D.run_one("paligemma-3b", "train_4k", "single",
+                       attn_impl="chunked", **kw)
+    assert same["bytes_per_device"] == rec["bytes_per_device"]
+    # paper mode: a tag replaces "_dystop"; the round's builder keeps the
+    # pod rule over the caller's
+    rec = T_D.run_one("smollm-135m", "train_4k", "multi", paper_mode=True,
+                      rule_overrides={"data": ("pod", "data"),
+                                      "embed": None}, tag="p", **kw)
+    assert (tmp_path / "smollm-135m_train_4k_multi_p.json").exists()
+    assert rec["rule_overrides"] == {"data": ("pod", "data"), "embed": None}
+    assert rec["rules"] == {**defaults, "data": ["data"], "embed": None}
+    assert not (tmp_path / "smollm-135m_train_4k_multi_dystop.json").exists()
+
+
+def test_h1_ladder_on_meta(tmp_path, capsys):
+    """The h1 ladder's three rungs count on ``meta``: smollm-135m has no
+    prefix, so "chunked" leaves flash in place and iteration 1 counts the
+    FLOPs and bytes of iteration 0; each rung prints the reference's
+    ``emit`` line, ``t_coll`` as ``n/a``."""
+    _script("torch_perf_hillclimb").h1(verbose=False, out_dir=tmp_path)
+    recs = [json.loads((tmp_path / f"smollm-135m_train_4k_single_{t}.json")
+                       .read_text())
+            for t in ("h1_iter0", "h1_chunked", "h1_chunked_cp")]
+    assert [r["attn_impl"] for r in recs] == ["naive", "chunked", "chunked"]
+    assert recs[2]["rule_overrides"] == {"q_seq": ["model"]}
+    assert [r["rules"]["q_seq"] for r in recs] == [None, None, ["model"]]
+    for r in recs[1:]:
+        assert (r["flops_per_device"], r["bytes_per_device"]) == (
+            recs[0]["flops_per_device"], recs[0]["bytes_per_device"])
+    lines = capsys.readouterr().out.splitlines()
+    assert [ln.split(":")[0] for ln in lines] == [
+        "== h1_iter0_baseline", "== h1_iter1_chunked",
+        "== h1_iter2_chunked_cp"]
+    assert all("t_coll=n/a bottleneck=memory" in ln for ln in lines)
+
+
+def test_roofline_table_skips_tagged_records(tmp_path):
+    kw = dict(verbose=False, out_dir=tmp_path)
+    T_D.run_one("smollm-135m", "decode_32k", "single", **kw)
+    T_D.run_one("smollm-135m", "decode_32k", "host", **kw)
+    T_D.run_one("smollm-135m", "decode_32k", "single", tag="x", **kw)
+    gen = _script("torch_gen_roofline_md")
+    recs = gen.load(tmp_path)
+    assert len(recs) == 2
+    table = gen.fmt(recs, "single").splitlines()
+    assert len(table) == 3 and table[0].startswith("| arch | shape | mode")
+    row = table[2].split(" | ")
+    assert row[:3] == ["| smollm-135m", "decode_32k", "serve"]
+    assert row[5] == "n/a" and row[6] == "**memory**"
+    assert "VMEM" not in table[2] and "MXU" not in table[2]
+    assert len(gen.fmt(recs, "host").splitlines()) == 3
+    assert not any("VMEM" in t or "MXU" in t for t in gen.REMEDY.values())

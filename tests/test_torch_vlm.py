@@ -10,7 +10,9 @@ Tolerances:
 * ``forward_logits`` and ``compute_loss`` with every gradient at smoke
   geometry: those of ``tests/test_torch_models.py`` (f32: logits and loss
   1e-5, gradients 1e-4; bf16: loss 2e-3, gradients atol 5e-3 and rtol
-  5e-2, logits 0.1, the decode tolerance);
+  5e-2, logits 0.1, the decode tolerance); with ``attn_impl="chunked"``
+  against the reference's chunked path the same, but the bf16 loss within
+  1e-3;
 * the engine's greedy streams (text only, as the reference's engine
   serves this family): equal in f32;
 * snapshots: bit for bit.
@@ -42,10 +44,12 @@ def _paths(tree):
             for p, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]]
 
 
-def _cfgs(dtype="float32"):
+def _cfgs(dtype="float32", **kw):
     from repro.models import registry as R_R
-    return (dataclasses.replace(R_R.get_smoke_config(ARCH), dtype=dtype),
-            dataclasses.replace(T_R.get_smoke_config(ARCH), dtype=dtype))
+    return (dataclasses.replace(R_R.get_smoke_config(ARCH), dtype=dtype,
+                                **kw),
+            dataclasses.replace(T_R.get_smoke_config(ARCH), dtype=dtype,
+                                **kw))
 
 
 def _inputs(cfg, seed=5):
@@ -57,13 +61,14 @@ def _inputs(cfg, seed=5):
     return tok, lab, pre
 
 
-def _reference(dtype):
+def _reference(dtype, **kw):
     """The reference's params, loss, gradients and logits on one batch,
-    with the prefix embeddings in the activation dtype."""
+    with the prefix embeddings in the activation dtype (``kw`` replaces
+    config fields in both packages)."""
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.models import registry as R_R
-    r_cfg, t_cfg = _cfgs(dtype)
+    r_cfg, t_cfg = _cfgs(dtype, **kw)
     tok, lab, pre = _inputs(r_cfg)
     with jax.default_device(jax.devices("cpu")[0]):
         params, _ = R_R.init_params(r_cfg, jax.random.PRNGKey(0))
@@ -83,13 +88,9 @@ def _reference(dtype):
             np.asarray(logits.astype(jnp.float32)), t_batch)
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_compute_loss_grads_and_logits_match_reference(dtype):
-    """The prefix goes in front unscaled (the token embeddings alone carry
-    ``sqrt(d_model)``), attends both ways among itself, and the loss skips
-    it; ``forward_logits`` keeps its positions, as the reference's does."""
+def _check_against_reference(dtype, loss_tol_bf16, **kw):
     r_cfg, t_cfg, r_params, r_loss, r_grads, r_logits, batch = \
-        _reference(dtype)
+        _reference(dtype, **kw)
     params = T_FS.params_from_reference(_paths(r_params), "cpu")
     flat = [leaf.requires_grad_() for _, leaf in tree_paths(params)]
     loss, parts = T_R.compute_loss(t_cfg, params, batch)
@@ -104,7 +105,7 @@ def test_compute_loss_grads_and_logits_match_reference(dtype):
     np.testing.assert_allclose(logits.numpy()[..., :v], r_logits[..., :v],
                                atol=1e-5 if f32 else 0.1, rtol=0)
     np.testing.assert_allclose(float(loss.detach()), r_loss,
-                               atol=1e-5 if f32 else 2e-3)
+                               atol=1e-5 if f32 else loss_tol_bf16)
     for (path, _), got, want in zip(tree_paths(params), grads, r_grads):
         assert np.abs(want).max() > 0, path           # every leaf trains
         if f32:
@@ -113,6 +114,76 @@ def test_compute_loss_grads_and_logits_match_reference(dtype):
         else:
             np.testing.assert_allclose(got.float().numpy(), want, atol=5e-3,
                                        rtol=5e-2, err_msg=str(path))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_compute_loss_grads_and_logits_match_reference(dtype):
+    """The prefix goes in front unscaled (the token embeddings alone carry
+    ``sqrt(d_model)``), attends both ways among itself, and the loss skips
+    it; ``forward_logits`` keeps its positions, as the reference's does."""
+    _check_against_reference(dtype, 2e-3)
+
+
+@pytest.mark.parametrize("chunk", [8, 12, 512])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_chunked_prefix_attention_matches_reference(dtype, chunk):
+    """``attn_impl="chunked"`` on the prefix-LM against the reference's
+    ``_chunked_attention`` over the 40 positions (16 prefix + 24 text):
+    5 kv blocks of 8, 4 blocks of 12 with the last padded, one block of
+    40.  The bf16 loss within 1e-3 (the einsum path is 1.97e-3 off the
+    reference's chunked loss here), the rest at the einsum path's
+    bounds."""
+    _check_against_reference(dtype, 1e-3, attn_impl="chunked",
+                             attn_chunk=chunk)
+
+
+def test_chunked_without_prefix_is_flash_bit_for_bit():
+    """Without a prefix the self-attention goes through flash whatever
+    ``attn_impl`` says, as the reference's Pallas backend does: smollm's
+    smoke logits under "chunked" equal those under "naive" bit for bit."""
+    cfg = T_R.get_smoke_config("smollm-135m")
+    params = T_R.init_params(cfg, torch.Generator().manual_seed(0))
+    tok = torch.from_numpy(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, size=(2, 40)).astype(np.int32))
+    with torch.no_grad():
+        naive = T_T.forward(cfg, params, tok)[0]
+        chunked = T_T.forward(dataclasses.replace(
+            cfg, attn_impl="chunked", attn_chunk=8), params, tok)[0]
+    assert torch.equal(naive, chunked)
+
+
+def test_chunked_prefix_step_counts_the_same_on_meta_and_cpu():
+    """``loopcost.step_costs`` of a chunked prefix-LM train step counts
+    the online softmax's ops by dispatch: the same FLOPs, bytes and peak
+    on ``meta`` and on the CPU, more bytes than the einsum path's, and no
+    kernel call."""
+    from repro_torch.configs.base import ShapeSpec
+    from repro_torch.launch import loopcost as LC
+    from repro_torch.launch import steps as T_S
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import get_optimizer
+    shape = ShapeSpec("smoke", 40, 2, "train")
+    opt = get_optimizer("adam")
+    counts = {}
+    for impl in ("chunked", "naive"):
+        cfg = dataclasses.replace(T_R.get_smoke_config(ARCH),
+                                  attn_impl=impl, attn_chunk=8)
+        art = T_S.build_train_artifacts(cfg, shape, make_host_mesh("cpu"),
+                                        opt)
+        for dev in ("meta", "cpu"):
+            gen = None if dev == "meta" else torch.Generator().manual_seed(0)
+            params = T_R.init_params(cfg, gen)
+            batch = T_R.batch_specs(cfg, shape)
+            if gen is not None:
+                batch = {k: torch.zeros(v.shape, dtype=v.dtype)
+                         for k, v in batch.items()}
+            c = LC.step_costs(art.step_fn, params, opt.init(params), batch)
+            counts[impl, dev] = (c.dot_flops, c.io_bytes, c.peak_bytes,
+                                 c.arg_bytes, dict(c.kernel_calls))
+    assert counts["chunked", "meta"] == counts["chunked", "cpu"]
+    assert counts["naive", "meta"] == counts["naive", "cpu"]
+    assert counts["chunked", "cpu"][1] != counts["naive", "cpu"][1]
+    assert not counts["chunked", "cpu"][4]
 
 
 def test_prefix_is_bidirectional_and_text_is_causal():
