@@ -69,6 +69,11 @@ def _silu_chain(x: torch.Tensor) -> torch.Tensor:
     return x * torch.reciprocal(1 + torch.exp(-x))
 
 
+def _silu_chain_f32(x: torch.Tensor) -> torch.Tensor:
+    # the bf16 factors' product is exact in f32: the multiply promotes
+    return x.float() * torch.reciprocal(1 + torch.exp(-x))
+
+
 def _gelu_chain(x: torch.Tensor) -> torch.Tensor:
     c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype)
     k = torch.tensor(0.044715, dtype=x.dtype)
@@ -80,6 +85,14 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     ``x * (1 / (1 + exp(-x)))``, each op rounded to x's dtype (bit for bit
     in bf16; ``F.silu`` rounds once and differs in ~40% of bf16 values)."""
     return _PerOp.apply(x, _silu_chain, F.silu)
+
+
+def silu_f32(x: torch.Tensor) -> torch.Tensor:
+    """``silu`` with its last product, ``x * (1 / (1 + exp(-x)))``, left in
+    f32: where the reference's compiled caller reads the activation in
+    f32, XLA drops the product's rounding to x's dtype (its excess
+    precision), and so does this."""
+    return _PerOp.apply(x, _silu_chain_f32, F.silu)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:

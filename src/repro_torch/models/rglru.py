@@ -18,12 +18,21 @@ exp(L_t) times the state before it.  log a <= 0, so every kept exponent is
 are set to -inf before ``exp`` (their value and gradient are 0, never
 0 * inf).  Memory is O(S * SCAN_CHUNK * width), levels log_CHUNK(S).
 
-Rounding places, as the JAX package's CPU backend evaluates them in bf16:
-the two input projections and the conv round to the activation dtype;
-``gelu`` runs in f32 on the rounded product; the gates' products
-``x @ w_a`` and ``x @ w_x`` are f32 matmuls (PyTorch's default keeps them
-IEEE f32 on the card: ``allow_tf32`` is off unless a caller turns it on);
-``gelu * h`` is rounded to the activation dtype before ``w_out``.
+Rounding places, as the JAX package's model runs compiled by XLA on its
+CPU backend in bf16: the two input projections round to the activation
+dtype, and so does every op of the conv but the SiLU's last product,
+which ``_gates`` reads in f32 and XLA therefore leaves unrounded in a
+forward pass (its excess precision), though not where autograd saves it
+(``_conv``); ``gelu`` runs in f32 on the rounded product; the gates'
+products ``x @ w_a`` and ``x @ w_x`` are f32 matmuls (PyTorch's default
+keeps them IEEE f32 on the card: ``allow_tf32`` is off unless a caller
+turns it on); ``gelu * h`` is rounded to the activation dtype before
+``w_out``.  What is left against the compiled reference is sum order
+(``tests/test_torch_blocks_groups.py``): the scan's, at most 1.5e-6 of
+its rms in f32, and the bf16 products'; an ulp flip of ``x @ w_rec``
+(~0.01 % of the conv's outputs) is carried along time by the recurrence,
+so the block reads up to 1.2 % of its outputs off and 0.17 % beyond an
+ulp.
 """
 from __future__ import annotations
 
@@ -124,11 +133,29 @@ def linear_scan(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     return h.reshape(bsz, nc * chunk, d)[:, :s]
 
 
+def _conv(p: Params, x_res: torch.Tensor,
+          tail: Optional[torch.Tensor] = None):
+    """The input branch's projection and causal conv -> (xr, new tail).
+    Where autograd records the conv (training), its SiLU's last product
+    rounds to the activation dtype; elsewhere (eval, prefill, decode) it
+    stays f32.  So does the JAX package's compiled model: a forward alone
+    hands that product to ``_gates``' f32 upcast unrounded, but under
+    ``jax.value_and_grad`` it is a residual of the backward pass, and XLA
+    materialises it in bf16.  Under ``jax.checkpoint`` the reference's
+    forward keeps it f32 again; the port's checkpointed forward is
+    recorded and rounds, so that ``remat`` leaves the port's values as
+    they are (``tests/test_torch_remat.py``)."""
+    xw = x_res @ p["w_rec"]
+    return _causal_conv(xw, p["conv_w"], p["conv_b"], tail=tail,
+                        f32_out=not xw.requires_grad)
+
+
 def rglru_forward(cfg: ModelConfig, p: Params,
                   x_res: torch.Tensor) -> torch.Tensor:
-    """x_res (B, S, D) -> (B, S, D)."""
+    """x_res (B, S, D) -> (B, S, D).  The conv's last product stays f32
+    unless autograd records it (``_conv``)."""
     branch_g = gelu((x_res @ p["w_gelu"]).float())
-    xr, _ = _causal_conv(x_res @ p["w_rec"], p["conv_w"], p["conv_b"])
+    xr, _ = _conv(p, x_res)
     log_a, b = _gates(p, xr)
     h = linear_scan(log_a, b)
     return (branch_g * h).to(x_res.dtype) @ p["w_out"]
@@ -151,8 +178,7 @@ def rglru_decode_step(cfg: ModelConfig, p: Params, cache: Params,
     """One recurrent step.  x_res (B, 1, D) -> (out (B, 1, D), cache), the
     new state and conv tail written into ``cache``'s tensors in place."""
     branch_g = gelu((x_res @ p["w_gelu"]).float())
-    xr, new_tail = _causal_conv(x_res @ p["w_rec"], p["conv_w"],
-                                p["conv_b"], tail=cache["conv_tail"])
+    xr, new_tail = _conv(p, x_res, cache["conv_tail"])
     log_a, b = _gates(p, xr)
     h = torch.exp(log_a[:, 0]) * cache["h"] + b[:, 0]
     cache["h"].copy_(h)

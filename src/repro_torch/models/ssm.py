@@ -19,7 +19,8 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import ops as K
-from repro_torch.models.layers import _dense_init, _device, _dtype, silu
+from repro_torch.models.layers import (_dense_init, _device, _dtype, silu,
+                                       silu_f32)
 
 Params = Dict[str, Any]
 
@@ -65,12 +66,14 @@ def _split_in(cfg: ModelConfig, h: torch.Tensor):
 
 
 def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
-                 tail: Optional[torch.Tensor] = None
+                 tail: Optional[torch.Tensor] = None, f32_out: bool = False
                  ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Depthwise causal conv along time, then SiLU -> (out, new tail).
     x (B, S, C), w (W, C).  Zeros stand before the first step, or, in
     decode, ``tail`` (B, W-1, C): the last W-1 inputs, returned updated.
-    Every op rounds to x's dtype, as the reference's does."""
+    Every op rounds to x's dtype, as the reference's does; with
+    ``f32_out`` the SiLU's last product stays f32 (``layers.silu_f32``;
+    ``rglru._conv`` says where the compiled reference leaves it so)."""
     W = w.shape[0]
     if tail is None:
         xp = F.pad(x, (0, 0, W - 1, 0))
@@ -80,7 +83,7 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     for i in range(1, W):
         out = out + xp[:, i:i + x.shape[1], :] * w[i]
     new_tail = xp[:, -(W - 1):, :] if W > 1 else None
-    return silu(out + b), new_tail
+    return (silu_f32 if f32_out else silu)(out + b), new_tail
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,

@@ -160,15 +160,21 @@ def residual_norm(cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor,
     return xs.to(x.dtype), L.rms_norm(xs, scale, cfg.norm_eps, x.dtype)
 
 
+def _add(x: torch.Tensor, y: torch.Tensor, hand_on: bool) -> torch.Tensor:
+    """x + y: rounded to x's dtype, or with ``hand_on`` the f32 sum."""
+    return x.float() + y.float() if hand_on else x + y
+
+
 def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, y: torch.Tensor,
-         per_row: bool = False
+         per_row: bool = False, hand_on: bool = False
          ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The layer's second half after the mixer's output y: residual, norm,
     MLP or MoE, post-norm, residual.  Returns (x, the MoE aux term, or None
-    for a layer without MoE).  The norm reads the residual sum in f32
-    (``residual_norm``)."""
+    for a layer without MoE); with ``hand_on`` x is the last residual sum
+    in f32, unrounded (see ``apply_layer``).  The norm reads the residual
+    sum in f32 (``residual_norm``)."""
     if "mlp" not in p and "moe" not in p:
-        return x + y, None
+        return _add(x, y, hand_on), None
     x, h = residual_norm(cfg, x, y, p["ln2"])
     aux = None
     if "moe" in p:
@@ -177,16 +183,28 @@ def _ffn(cfg: ModelConfig, p: Params, x: torch.Tensor, y: torch.Tensor,
         y = L.mlp(cfg, p["mlp"], h)
     if cfg.post_norm:
         y = L.rms_norm(y, p["ln2_post"], cfg.norm_eps)
-    return x + y, aux
+    return _add(x, y, hand_on), aux
 
 
 def apply_layer(cfg: ModelConfig, p: Params, kind: str, x: torch.Tensor,
-                positions: torch.Tensor, prefix_len: int = 0
+                positions: torch.Tensor, prefix_len: int = 0,
+                hand_on: bool = False
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """Full-sequence (train/prefill) layer; its first ``prefix_len``
     positions attend to each other both ways.  Returns (x, moe_aux or
-    None)."""
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    None).
+
+    Inside one compiled stretch of layers (a scanned group, the prelude,
+    the coda) the JAX package's XLA hands a layer's last residual sum to
+    the next layer's ``ln1`` in f32, unrounded: the norm's f32 upcast
+    swallows the add's rounding, as ``residual_norm`` does for ``ln2``;
+    only the residual itself, and a scan's carry, are rounded.  So ``x``
+    may come in f32 while ``cfg.dtype`` is bf16: ``ln1`` reads it as it
+    is, the residual its rounding; and with ``hand_on`` the layer returns
+    its own output that way (``forward`` says where)."""
+    dt = L._dtype(cfg)
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps, dt)
+    x = x.to(dt)
     if kind == "ssm":
         y = S.ssm_forward(cfg, p["ssm"], h)
     elif kind == "rglru":
@@ -197,7 +215,7 @@ def apply_layer(cfg: ModelConfig, p: Params, kind: str, x: torch.Tensor,
                                      positions)
     if cfg.post_norm:
         y = L.rms_norm(y, p["ln1_post"], cfg.norm_eps)
-    return _ffn(cfg, p, x, y)
+    return _ffn(cfg, p, x, y, hand_on=hand_on)
 
 
 def decode_layer(cfg: ModelConfig, p: Params, kind: str, cache: Params,
@@ -401,23 +419,28 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
                              device=x.device)[None, :].expand(b, s)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
-    def run(layers, x, aux):
-        for lp, kind in layers:
-            x, a = apply_layer(cfg, lp, kind, x, positions, prefix_len)
+    def run(layers, x, aux, round_last):
+        for i, (lp, kind) in enumerate(layers):
+            x, a = apply_layer(cfg, lp, kind, x, positions, prefix_len,
+                               hand_on=i + 1 < len(layers) or not round_last)
             if a is not None:
                 aux = aux + a
         return x, aux
 
+    # a layer rounds its output only where the JAX package's scan carries
+    # it (the prelude's last layer before the groups, each group's last);
+    # every other layer hands its f32 sum on (``apply_layer``), the last
+    # coda layer to the final norm
     n_pre, n_grp, _ = structure(cfg)
     per = len(pattern(cfg))
     layers = _layers(cfg, params)
-    x, aux = run(layers[:n_pre], x, aux)
+    x, aux = run(layers[:n_pre], x, aux, round_last=n_grp > 0)
     for g in range(n_grp):
         lo = n_pre + g * per
-        x, aux = remat_call(remat, run, layers[lo:lo + per], x, aux)
-    x, aux = run(layers[n_pre + n_grp * per:], x, aux)
+        x, aux = remat_call(remat, run, layers[lo:lo + per], x, aux, True)
+    x, aux = run(layers[n_pre + n_grp * per:], x, aux, round_last=False)
 
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, L._dtype(cfg))
     return L.lm_logits(cfg, table, x), aux
 
 

@@ -17,6 +17,25 @@ packages, jax pinned to its CPU backend.  Tolerances:
   ``tests/test_torch_decode.py`` and ``tests/test_torch_serving.py``;
 * the federation: those of ``tests/test_torch_lm.py`` (f32 1e-4, bf16
   1e-2 on ``loss_global``), the control plane identical.
+
+The reference's bf16 RG-LRU rounds its conv's last SiLU product under
+``jax.value_and_grad`` (a residual of the backward) and not in a forward
+alone, and the port follows it (``rglru._conv``): ``compute_loss`` with
+gradients, as here, runs the rounded product in both.
+
+What the scalar bf16 bound can and cannot catch.  The loss gap against the
+reference moves with the token seed: over seeds 5-10 it spans 9.1e-4 to 1.3e-3 (the reference's own
+loss under ``value_and_grad`` and in a forward alone differ by up to
+1.1e-3); the
+reference's own bf16 loss differs from its f32 one by 7e-5 to 8.8e-3.  The
+bound measures the spread of sum-order noise (bf16 products accumulated in
+another order, each flip carried downstream), so it catches a wrong
+function, not a rounding place moved: an ignored ``attn_impl="chunked"``
+read 1.97e-3 on the vlm family, and a rounding of the RG-LRU conv's
+output that the compiled reference's forward skips, which moved 38-43 %
+of its layer's outputs, left the hybrid loss inside the same spread.  Rounding places are held block by block, on the
+reference's own residual stream, by ``tests/test_torch_blocks*.py`` (the
+harness is ``tests/_torch_blocks.py``).
 """
 import dataclasses
 import os

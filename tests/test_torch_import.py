@@ -48,7 +48,8 @@ def test_port_imports_with_jax_absent():
 
 @pytest.mark.parametrize("path", sorted(
     [p for p in PORT.rglob("*.py")]
-    + [ROOT / "chip_smoke.py", ROOT / "chip_pods_ab.py"]
+    + [ROOT / "chip_smoke.py", ROOT / "chip_pods_ab.py",
+       ROOT / "chip_hybrid_ab.py"]
     + list((ROOT / "examples").glob("torch_*.py"))
     + list((ROOT / "scripts").glob("torch_*.py"))),
     ids=lambda p: str(p.relative_to(ROOT)))

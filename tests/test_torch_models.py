@@ -4,10 +4,25 @@ The reference's own init goes through both packages; ``compute_loss`` and its
 gradients are compared with the reference routing attention through its
 Pallas flash kernel in interpret mode (``KernelConfig(backend="pallas")``),
 jax pinned to its CPU backend.  In f32 the two compute the same algorithm:
-loss to 1e-5, gradients to 1e-4.  In bf16 activations round at other places
-in the two frameworks (and the flash output in another sum order), so the
-tolerances are those of ``tests/test_kernel_plane.py``: loss 2e-3, gradients
-atol 5e-3 and rtol 5e-2.
+loss to 1e-5, gradients to 1e-4.  In bf16 (smollm-135m, smollm-360m,
+stablelm-1.6b and gemma2-2b at token seed 5) the tolerances are those of
+``tests/test_kernel_plane.py``: loss 2e-3, gradients atol 5e-3 and rtol
+5e-2; measured at seed 5: loss 1.7e-4, 1.6e-3, 5.7e-4 and 3.1e-4, every
+gradient within 0.16 of its tolerance.
+
+What the scalar bf16 bound can and cannot catch.  The loss gap against the
+reference moves with the token seed: over seeds 5-10 it spans 1.7e-4 to 1.5e-3 (smollm-135m), 4.2e-5 to 2.15e-3
+(smollm-360m: seed 9 is past 2e-3), 1.3e-4 to 1.95e-3 (stablelm-1.6b)
+and 1.1e-4 to 7.1e-4 (gemma2-2b); the
+reference's own bf16 loss differs from its f32 one by 7e-5 to 8.8e-3.  The
+bound measures the spread of sum-order noise (bf16 products accumulated in
+another order, each flip carried downstream), so it catches a wrong
+function, not a rounding place moved: an ignored ``attn_impl="chunked"``
+read 1.97e-3 on the vlm family, and a rounding of the RG-LRU conv's
+output that the compiled reference's forward skips, which moved 38-43 %
+of its layer's outputs, left the hybrid loss inside the same spread.  Rounding places are held block by block, on the
+reference's own residual stream, by ``tests/test_torch_blocks*.py`` (the
+harness is ``tests/_torch_blocks.py``).
 """
 import dataclasses
 
@@ -58,7 +73,8 @@ def _to_torch(paths, leaves):
 @pytest.mark.parametrize("arch, dtype, seq", [
     ("smollm-135m", "float32", S), ("smollm-135m", "bfloat16", S),
     ("smollm-360m", "float32", S), ("stablelm-1.6b", "float32", S),
-    ("gemma2-2b", "float32", 96)])
+    ("gemma2-2b", "float32", 96), ("smollm-360m", "bfloat16", S),
+    ("stablelm-1.6b", "bfloat16", S), ("gemma2-2b", "bfloat16", 96)])
 def test_compute_loss_and_grads_match_reference(arch, dtype, seq):
     paths, leaves, r_loss, r_grads, tok, lab = _reference(arch, dtype, seq)
     cfg = dataclasses.replace(T_R.get_smoke_config(arch), dtype=dtype)
