@@ -5,7 +5,9 @@ checkout given as the argument, with its kernels built there; prints one
 JSON line: the run's peak device memory, its wall (set-up included),
 ``loss_global`` and the card.  With a second argument ``serve`` it runs
 phase 28 instead (recurrentgemma-2b served at full size) and prints its
-ms a tick, peak and the device kernels of its profiled ticks.
+ms a tick, peak and the device kernels of its profiled ticks; with
+``train`` it runs phase 39 (``launch.train.train`` on smollm-135m) and
+prints its ms a step and the device kernels of its profiled steps.
 
 To hold two commits against each other on one card, unpack both into a
 directory that ``.gitignore`` lists and run them in one call, in the order
@@ -30,6 +32,7 @@ def main() -> None:
     tree = os.path.abspath(sys.argv[1])
     cpu = sys.argv[2:] == ["cpu"]
     serve = sys.argv[2:] == ["serve"]
+    train = sys.argv[2:] == ["train"]
     os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
                           "expandable_segments:True")
     sys.path[:0] = [tree, os.path.join(tree, "src")]
@@ -43,6 +46,17 @@ def main() -> None:
     from repro_torch.models import registry as R
 
     t0 = time.perf_counter()
+    if train:
+        import pathlib
+        _build.build()
+        out, _ = CS.train_phase(pathlib.Path(tree) / "build" / "ab_train")
+        print(json.dumps({
+            "tree": sys.argv[1], "ms_per_step": out["ms_per_step"],
+            "profiled_steps": out["profiled_steps"],
+            "device_kernels": out.get("device_kernels"),
+            "device_busy_share": out["device_busy_share"],
+            "card": CS.nvidia_smi()}), flush=True)
+        return
     if serve:
         _build.build()
         out = CS.full_serve_phase(recurrentgemma_2b.get_config(),

@@ -22,6 +22,54 @@ from repro_torch.kernels.ref import (flash_attention_plain, moe_router_plain,
                                      ssd_chunk_plain)
 
 
+def rounded_sum(x: torch.Tensor, dims) -> torch.Tensor:
+    """The sum over ``dims`` (an int or a tuple) as the JAX package's CPU
+    backend reduces a bf16 (or f16) tensor: every add rounded to x's
+    dtype, in windows of up to 32 along each summed dim (XLA's tree
+    reduction), each window summed in row-major order, then the windows'
+    sums reduced the same way until at most 32 remain along every dim,
+    which are summed in row-major order (``tests/test_torch_blocks_grad
+    .py`` pins the rule against XLA).  An f32 tensor is summed as
+    ``torch.sum`` sums it (sum order only).  One vector op per element of
+    a window: a reduction the reference runs in its activation dtype,
+    never a hot loop."""
+    dims = (dims,) if isinstance(dims, int) else tuple(dims)
+    if x.dtype in (torch.float32, torch.float64):
+        return x.sum(dims)
+    k = len(dims)
+    dims = sorted(d % x.dim() for d in dims)
+    x = x.permute(dims + [d for d in range(x.dim()) if d not in dims])
+    while True:
+        lead, rest = tuple(x.shape[:k]), tuple(x.shape[k:])
+        if all(n <= 32 for n in lead):
+            terms = x.reshape((-1,) + rest)
+            break
+        wins = [min(n, 32) for n in lead]
+        pads = [(-n) % w for n, w in zip(lead, wins)]
+        if any(pads):       # adding zeros changes no rounded partial sum
+            pad = [0, 0] * len(rest)
+            for q in reversed(pads):
+                pad += [0, q]
+            x = torch.nn.functional.pad(x, pad)
+        split = []
+        for n, p_, w in zip(lead, pads, wins):
+            split += [(n + p_) // w, w]
+        x = x.reshape(tuple(split) + rest)
+        order = ([2 * i for i in range(k)] + [2 * i + 1 for i in range(k)]
+                 + [2 * k + i for i in range(len(rest))])
+        x = x.permute(order)
+        outer = tuple(x.shape[:k])
+        x = x.reshape(outer + (-1,) + rest)
+        acc = x[(slice(None),) * k + (0,)]
+        for i in range(1, x.shape[k]):
+            acc = acc + x[(slice(None),) * k + (i,)]
+        x = acc
+    out = terms[0]
+    for i in range(1, terms.shape[0]):
+        out = out + terms[i]
+    return out
+
+
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
@@ -31,10 +79,22 @@ class _FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        q, k, v = (t.detach().requires_grad_() for t in ctx.saved_tensors)
+        """The plain version's gradient on keys and values repeated to H
+        heads, as the reference's model repeats them before its kernel,
+        then each kv head's G copies summed as the reference's transpose
+        of that repeat sums them (``rounded_sum``)."""
+        q, k, v = ctx.saved_tensors
+        b, hk, s, d = k.shape
+        grp = q.shape[1] // hk
+        q = q.detach().requires_grad_()
+        k = k.detach().repeat_interleave(grp, dim=1).requires_grad_()
+        v = v.detach().repeat_interleave(grp, dim=1).requires_grad_()
         with torch.enable_grad():
             out = flash_attention_plain(q, k, v, *ctx.mask)
         dq, dk, dv = torch.autograd.grad(out, (q, k, v), g)
+        if grp > 1:
+            dk = rounded_sum(dk.reshape(b, hk, grp, s, d), 2)
+            dv = rounded_sum(dv.reshape(b, hk, grp, s, d), 2)
         return dq, dk, dv, None, None, None
 
 

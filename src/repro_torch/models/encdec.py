@@ -152,14 +152,30 @@ def fill_cross_cache(cfg: ModelConfig, params: Params, cache: Params,
     return cache
 
 
-def _cross_step(cfg: ModelConfig, lp: Params, x: torch.Tensor,
+def _cross_attn(cfg: ModelConfig, lp: Params, h: torch.Tensor,
                 ck: torch.Tensor, cv: torch.Tensor) -> torch.Tensor:
-    """x (B, 1, D) plus its cross-attention onto the cached encoder keys
-    and values (every frame attended)."""
-    h = L.rms_norm(x, lp["ln_x"], cfg.norm_eps)
-    q = L._project(h, lp["xattn"]["wq"])
-    return x + L.cached_attention(cfg, lp["xattn"]["wo"], q, ck, cv, None,
-                                  None)
+    """Cross-attention of ``ln_x``'s output h (B, 1, D) onto the cached
+    encoder keys and values (every frame attended)."""
+    (hq,) = L.fan(h, 1, lp["xattn"]["wq"].dtype)
+    q = L._project(hq, lp["xattn"]["wq"])
+    return L.cached_attention(cfg, lp["xattn"]["wo"], q, ck, cv, None, None)
+
+
+def decode_layer(cfg: ModelConfig, lp: Params, layer: Params,
+                 ck: torch.Tensor, cv: torch.Tensor, x: torch.Tensor,
+                 pos: torch.Tensor) -> torch.Tensor:
+    """One decoder layer's step on x (B, 1, D): self-attention against its
+    KV ring ``layer`` (written in place), cross-attention onto the cached
+    encoder keys and values, the MLP.  Every layer's output is a carry of
+    the reference's scan, rounded; inside, ``ln_x`` and ``ln2`` read the
+    residual sums in f32, as in ``_decoder_layer``."""
+    h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
+    y = T._ring_attention_step(cfg, lp["attn"], h, layer, pos,
+                               L.AttnSpec(causal=True))
+    # ``ln_x`` and ``ln2`` read their residual sums in f32, as XLA fuses
+    # the adds into them (``transformer.residual_norm``)
+    x, h = T.residual_norm(cfg, x, y, lp["ln_x"])
+    return T._ffn(cfg, lp, x, _cross_attn(cfg, lp, h, ck, cv))[0]
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params,
@@ -173,15 +189,10 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     pos = cache["pos"]
     table = params["embed"]["table"]
     x = T._embed(cfg, table, token)
-    spec = L.AttnSpec(causal=True)
     sc, cc = cache["self"], cache["cross"]
     for i, lp in enumerate(T._group_views(params["decoder"], cfg.n_layers)):
-        h = L.rms_norm(x, lp["ln1"], cfg.norm_eps)
         layer = {"k": sc["k"][i], "v": sc["v"][i], "k_pos": sc["k_pos"][i]}
-        x = x + T._ring_attention_step(cfg, lp["attn"], h, layer, pos, spec)
-        x = _cross_step(cfg, lp, x, cc["k"][i], cc["v"][i])
-        h = L.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        x = x + L.mlp(cfg, lp["mlp"], h)
+        x = decode_layer(cfg, lp, layer, cc["k"][i], cc["v"][i], x, pos)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     cache["pos"] = pos + 1
     return L.lm_logits(cfg, table, x), cache

@@ -12,6 +12,13 @@ Conventions, as in the JAX package:
     (``sharding.rules``), built from ``cfg`` alone;
   * activations run in ``cfg.dtype`` (bf16 by default), norm and softmax
     statistics in f32, logits in f32;
+  * the backward rounds where the reference's compiled backward rounds
+    (``tests/test_torch_blocks_grad*.py``): the activations' pullbacks
+    are ``jax.vjp``'s op chains (``_PerOp``), a norm's users' cotangents
+    meet in f32 (``rms_norm(held=)``, ``fan``), a broadcast operand's
+    gradient sums add by add in bf16 (``broadcast_mul``), and the input
+    gradient of a norm that reads a bf16 residual sum in f32 rounds before
+    the residual's joins it (``round_grad``, ``transformer.residual_norm``);
   * shapes: tokens (B, S); hidden (B, S, D); attention heads (B, S, H, hd).
 
 Attention on the self-attention train/prefill branch goes through
@@ -27,12 +34,13 @@ sharded execution item of the roadmap).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import math
+import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
@@ -45,46 +53,77 @@ Params = Dict[str, Any]
 
 
 class _PerOp(torch.autograd.Function):
-    """An activation whose forward is a chain of ops each rounded to x's
-    dtype (the JAX package's CPU backend evaluates them so) and whose
-    backward is the gradient of the smooth f32 formula: the chain's own
-    autograd would give 0 * inf = NaN where ``exp(-x)`` overflows."""
+    """An activation whose forward and backward are the JAX package's op
+    chains as its CPU backend compiles them in bf16: each op rounded to
+    x's dtype, the backward the chain ``jax.vjp`` builds from the
+    forward's ops (``logistic``'s own ``y * (1 - y)``, ``tanh``'s
+    ``1 - y^2``), never autograd through ``exp`` (0 * inf = NaN where
+    ``exp(-x)`` overflows)."""
 
     @staticmethod
-    def forward(ctx, x, chain, smooth):
+    def forward(ctx, x, chain, grad):
         ctx.save_for_backward(x)
-        ctx.smooth = smooth
+        ctx.grad = grad
         return chain(x)
 
     @staticmethod
     def backward(ctx, g):
         (x,) = ctx.saved_tensors
-        with torch.enable_grad():
-            xf = x.detach().float().requires_grad_()
-            (gx,) = torch.autograd.grad(ctx.smooth(xf), xf, g.float())
-        return gx.to(x.dtype), None, None
+        return ctx.grad(x, g), None, None
+
+
+def _sigmoid_chain(x: torch.Tensor) -> torch.Tensor:
+    return torch.reciprocal(1 + torch.exp(-x))
 
 
 def _silu_chain(x: torch.Tensor) -> torch.Tensor:
-    return x * torch.reciprocal(1 + torch.exp(-x))
+    return x * _sigmoid_chain(x)
 
 
 def _silu_chain_f32(x: torch.Tensor) -> torch.Tensor:
     # the bf16 factors' product is exact in f32: the multiply promotes
-    return x.float() * torch.reciprocal(1 + torch.exp(-x))
+    return x.float() * _sigmoid_chain(x)
+
+
+def _silu_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The pullback of ``x * logistic(x)``: ``g * s + (x * g) * (s * (1 -
+    s))``, each op in x's dtype (the f32 cotangent of ``silu_f32`` is
+    rounded first, as the transpose of the reference's upcast)."""
+    g = g.to(x.dtype)
+    s = _sigmoid_chain(x)
+    return g * s + (x * g) * (s * (1 - s))
+
+
+def _gelu_consts(x: torch.Tensor):
+    return (torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype),
+            torch.tensor(0.044715, dtype=x.dtype))
 
 
 def _gelu_chain(x: torch.Tensor) -> torch.Tensor:
-    c = torch.tensor(math.sqrt(2.0 / math.pi), dtype=x.dtype)
-    k = torch.tensor(0.044715, dtype=x.dtype)
+    c, k = _gelu_consts(x)
     return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def _gelu_grad(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+    """The pullback of ``x * (0.5 * (1 + tanh(c * (x + k * x^3))))`` in
+    the order ``jax.vjp`` builds it, each op in x's dtype: the cdf's term
+    ``g * cdf``, then through tanh (``d + d * t`` with ``d = (x * g) *
+    0.5 * (1 - t)``) and c to the inner sum's two terms, ``x`` and ``k *
+    x^3`` (``(ct * k) * (x * x * 3)``), added in that order."""
+    c, k = _gelu_consts(x)
+    x2 = x * x
+    t = torch.tanh(c * (x + k * (x2 * x)))
+    d = ((x * g) * 0.5) * (1 - t)
+    inner = (d + d * t) * c
+    return (g * ((t + 1) * 0.5) + inner) + (inner * k) * (x2 * 3)
 
 
 def silu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.silu`` as the JAX package's CPU backend evaluates it:
     ``x * (1 / (1 + exp(-x)))``, each op rounded to x's dtype (bit for bit
-    in bf16; ``F.silu`` rounds once and differs in ~40% of bf16 values)."""
-    return _PerOp.apply(x, _silu_chain, F.silu)
+    in bf16; ``F.silu`` rounds once and differs in ~40% of bf16 values),
+    and its pullback likewise (``_silu_grad``)."""
+    return _PerOp.apply(x, _silu_chain, _silu_grad)
 
 
 def silu_f32(x: torch.Tensor) -> torch.Tensor:
@@ -92,15 +131,61 @@ def silu_f32(x: torch.Tensor) -> torch.Tensor:
     f32: where the reference's compiled caller reads the activation in
     f32, XLA drops the product's rounding to x's dtype (its excess
     precision), and so does this."""
-    return _PerOp.apply(x, _silu_chain_f32, F.silu)
+    return _PerOp.apply(x, _silu_chain_f32, _silu_grad)
 
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.gelu`` (the tanh form) as the JAX package's CPU backend
     evaluates it: ``x * (0.5 * (1 + tanh(c * (x + k * x^3))))`` with the
-    constants and every op rounded to x's dtype (bit for bit in bf16)."""
-    return _PerOp.apply(x, _gelu_chain,
-                        lambda v: F.gelu(v, approximate="tanh"))
+    constants and every op rounded to x's dtype (bit for bit in bf16), and
+    its pullback likewise (``_gelu_grad``)."""
+    return _PerOp.apply(x, _gelu_chain, _gelu_grad)
+
+
+_CHECKPOINT = threading.local()
+
+
+@contextlib.contextmanager
+def checkpointed_forward():
+    """The first forward of a checkpointed region (``transformer.
+    remat_call``): autograd records it but saves nothing for the backward,
+    which runs the region again (outside this context)."""
+    prev = getattr(_CHECKPOINT, "on", False)
+    _CHECKPOINT.on = True
+    try:
+        yield
+    finally:
+        _CHECKPOINT.on = prev
+
+
+def saves_for_backward(x: torch.Tensor) -> bool:
+    """Whether autograd keeps what is computed from x for the backward: x
+    records a graph and no checkpointed region's first forward is running
+    (there the reference's ``jax.checkpoint`` keeps no residual either)."""
+    return x.requires_grad and not getattr(_CHECKPOINT, "on", False)
+
+
+class _RoundGrad(torch.autograd.Function):
+    """The identity, whose pullback rounds the cotangent to ``dtype`` and
+    hands it on in x's dtype."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        ctx.dtype = dtype
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.to(ctx.dtype).to(g.dtype), None
+
+
+def round_grad(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """x, with its gradient rounded to ``dtype`` where it leaves: where the
+    reference's compiled backward materialises a cotangent in the
+    activation dtype that the port's autograd would carry on in f32."""
+    if dtype == x.dtype:
+        return x
+    return _RoundGrad.apply(x, dtype)
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -149,13 +234,110 @@ def init_rmsnorm(cfg: ModelConfig, device=None) -> torch.Tensor:
 RMSNORM_AXES = ("embed",)
 
 
+class _Broadcast(torch.autograd.Function):
+    """x * w or x + w, w broadcast over x's ``dims``; the pullback onto w
+    sums over them as the reference's transpose of the broadcast does
+    (``ops.rounded_sum``: in the activation dtype, add by add)."""
+
+    @staticmethod
+    def forward(ctx, x, w, dims, mul):
+        ctx.save_for_backward(x if mul else None, w if mul else None)
+        ctx.dims, ctx.mul, ctx.shape = dims, mul, w.shape
+        return x * w if mul else x + w
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        if ctx.mul:
+            return (g * w, K.rounded_sum(g * x, ctx.dims).reshape(ctx.shape),
+                    None, None)
+        return g, K.rounded_sum(g, ctx.dims).reshape(ctx.shape), None, None
+
+
+def broadcast_mul(x: torch.Tensor, w: torch.Tensor, dims) -> torch.Tensor:
+    """x * w, w broadcast over x's ``dims``, its gradient summed as the
+    reference's backward sums it (``_Broadcast``)."""
+    return _Broadcast.apply(x, w, dims, True)
+
+
+def broadcast_add(x: torch.Tensor, w: torch.Tensor, dims) -> torch.Tensor:
+    """x + w, as ``broadcast_mul``."""
+    return _Broadcast.apply(x, w, dims, False)
+
+
+class _Held(torch.autograd.Function):
+    """x rounded to ``dtype`` and held in x's dtype; the pullback passes
+    the cotangent on as it comes."""
+
+    @staticmethod
+    def forward(ctx, x, dtype):
+        return x.to(dtype).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _Fan(torch.autograd.Function):
+    """x in ``dtype``, once per user: distinct outputs, so that autograd
+    hands each user's cotangent to ``backward`` on its own, each a view of
+    one cast (a user that saves its input saves that one tensor)."""
+
+    @staticmethod
+    def forward(ctx, x, n, dtype, round_last):
+        ctx.in_dtype, ctx.round_last = x.dtype, round_last
+        y = x.to(dtype)
+        return tuple(y.view_as(y) for _ in range(n))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [g for g in gs if g is not None]
+        acc = gs[-1]
+        for g in reversed(gs[1:-1]):
+            acc = (acc.float() + g.float()).to(acc.dtype)
+        if len(gs) > 1:
+            acc = acc.float() + gs[0].float()
+            if ctx.round_last:
+                acc = acc.to(gs[0].dtype)
+        return acc.to(ctx.in_dtype), None, None, None
+
+
+def fan(x: torch.Tensor, n: int, dtype: torch.dtype,
+        round_last: bool = False):
+    """x cast to ``dtype`` for each of its ``n`` users, in the order the
+    reference's code uses it.  In the backward the users' cotangents are
+    summed as ``jax.vjp`` sums them, from the last user back, each partial
+    sum rounded to ``dtype``; the last sum comes out unrounded in x's
+    dtype (f32 where x is a norm's held output, ``rms_norm(held=)``), as
+    XLA hands it to the norm's f32 pullback, unless ``round_last`` (the
+    MoE FFN's four users, whose sum XLA materialises).  Every reader of a
+    norm's held output takes it through here; for one user it is the
+    cast."""
+    if n == 1 or not (torch.is_grad_enabled() and x.requires_grad):
+        y = x.to(dtype)
+        return (y,) * n
+    return _Fan.apply(x, n, dtype, round_last)
+
+
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float,
-             dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """RMS norm in f32, output in ``dtype`` (default x's)."""
+             dtype: Optional[torch.dtype] = None,
+             held: bool = False) -> torch.Tensor:
+    """RMS norm in f32, output in ``dtype`` (default x's).  With ``held``,
+    where autograd records it, the output is rounded to ``dtype`` but
+    comes as f32, and each of its users casts it to its weights' dtype
+    itself (``fan``: ``multihead_attention``, ``mlp``, the mixers,
+    ``moe_ffn``): the users' cotangents then meet in f32, as the
+    reference's compiled backward adds them before the norm's f32
+    pullback reads their sum."""
     xf = x.float()
     var = torch.mean(torch.square(xf), dim=-1, keepdim=True)
     normed = xf * torch.rsqrt(var + eps)
-    return (normed * (1.0 + scale)).to(dtype or x.dtype)
+    out = normed * (1.0 + scale)
+    dt = dtype or x.dtype
+    if held and dt != out.dtype and torch.is_grad_enabled() and \
+            out.requires_grad:
+        return _Held.apply(out, dt)
+    return out.to(dt)
 
 
 # --------------------------------------------------------------------------- #
@@ -336,14 +518,16 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     ``cache_pos`` onward (clamped to fit, as ``dynamic_update_slice``
     clamps), and attention spans the cache with rows past the step masked."""
     b, s, _ = x.shape
+    dt = p["wq"].dtype
     if kv_x is not None:
-        return cached_attention(cfg, p["wo"], _project(x, p["wq"]),
-                                _project(kv_x, p["wk"]),
-                                _project(kv_x, p["wv"]), None,
-                                spec.softcap), None
-    q = apply_rope(_project(x, p["wq"]), positions, cfg.rope_theta)
-    k = apply_rope(_project(x, p["wk"]), positions, cfg.rope_theta)
-    v = _project(x, p["wv"])
+        (xq,), (xk, xv) = fan(x, 1, dt), fan(kv_x, 2, dt)
+        return cached_attention(cfg, p["wo"], _project(xq, p["wq"]),
+                                _project(xk, p["wk"]), _project(xv, p["wv"]),
+                                None, spec.softcap), None
+    xq, xk, xv = fan(x, 3, dt)
+    q = apply_rope(_project(xq, p["wq"]), positions, cfg.rope_theta)
+    k = apply_rope(_project(xk, p["wk"]), positions, cfg.rope_theta)
+    v = _project(xv, p["wv"])
     if cache is not None:
         w = cache["k"].shape[1]
         start = min(max(int(cache_pos), 0), w - s)
@@ -397,7 +581,8 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     rounded to x's dtype, bit for bit the JAX package's on its CPU backend
     (jax 0.9.0 does not fuse the chain into one f32 rounding)."""
     act = gelu if cfg.mlp_activation == "gelu" else silu
-    return (act(x @ p["w_gate"]) * (x @ p["w_up"])) @ p["w_down"]
+    xg, xu = fan(x, 2, p["w_gate"].dtype)
+    return (act(xg @ p["w_gate"]) * (xu @ p["w_up"])) @ p["w_down"]
 
 
 # --------------------------------------------------------------------------- #

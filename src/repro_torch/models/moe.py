@@ -31,7 +31,8 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
-from repro_torch.models.layers import _dense_init, _dtype, gelu, silu
+from repro_torch.models.layers import (_dense_init, _dtype, broadcast_mul, fan,
+                                       gelu, silu)
 
 Params = Dict[str, Any]
 
@@ -136,9 +137,28 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     m = cfg.moe
     b, s, d = x.shape
     t = b * s
-    xt = x.reshape(t, d)
-    gates, eids, aux = route(cfg, p["router"], xt)
-    groups = b if per_row else 1
+    dt = p["w_gate"].dtype
+    uses = fan(x, 4 if m.n_shared_experts else 2, dt, round_last=True)
+    gates, eids, aux = route(cfg, p["router"], uses[0].reshape(t, d))
+    xt = uses[1].reshape(t, d)
+    y = routed_experts(cfg, p, xt, gates, eids, b if per_row else 1)
+
+    if m.n_shared_experts:
+        sp = p["shared"]
+        hs = _act(cfg)(uses[2].reshape(t, d) @ sp["w_gate"]) * (
+            uses[3].reshape(t, d) @ sp["w_up"])
+        y = y + hs @ sp["w_down"]
+    return y.reshape(b, s, d), aux
+
+
+def routed_experts(cfg: ModelConfig, p: Params, xt: torch.Tensor,
+                   gates: torch.Tensor, eids: torch.Tensor,
+                   groups: int = 1) -> torch.Tensor:
+    """The routed experts and the top-k combine of the tokens xt (T, D) on
+    their gates and expert ids (T, k), dispatched in ``groups`` capacity
+    groups of T / groups tokens -> (T, D)."""
+    m = cfg.moe
+    t, d = xt.shape
     c = expert_capacity(cfg, t // groups)
     slots, keep = dispatch_indices(eids.reshape(groups, t // groups, m.top_k),
                                    m.n_experts, c)
@@ -147,7 +167,7 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
     # scatter tokens (repeated per chosen expert) into the dispatch buffer;
     # dropped choices all land on the dummy last row, which is discarded, so
     # the copy (never an accumulating scatter) may take them in any order
-    buf = torch.zeros((rows + 1, d), dtype=x.dtype, device=x.device)
+    buf = torch.zeros((rows + 1, d), dtype=xt.dtype, device=xt.device)
     buf.index_copy_(0, slots, xt.repeat_interleave(m.top_k, dim=0))
     ebuf = buf[:rows].reshape(m.n_experts, groups * c, d)
     h = _act(cfg)(torch.bmm(ebuf, p["w_gate"])) * torch.bmm(ebuf, p["w_up"])
@@ -158,14 +178,10 @@ def moe_ffn(cfg: ModelConfig, p: Params, x: torch.Tensor,
                           torch.zeros((1, d), dtype=out.dtype,
                                       device=out.device)])
     per_choice = out_flat[slots]                                 # (T*k, D)
-    w = (gates.reshape(-1) * keep.float()).to(x.dtype)
-    y = (per_choice * w[:, None]).reshape(t, m.top_k, d).sum(dim=1)
-
-    if m.n_shared_experts:
-        sp = p["shared"]
-        hs = _act(cfg)(xt @ sp["w_gate"]) * (xt @ sp["w_up"])
-        y = y + hs @ sp["w_down"]
-    return y.reshape(b, s, d), aux
+    w = (gates.reshape(-1) * keep.float()).to(xt.dtype)
+    # the gates' gradient sums each row's products as the reference does
+    return broadcast_mul(per_choice, w[:, None], (1,)).reshape(
+        t, m.top_k, d).sum(dim=1)
 
 
 def _act(cfg: ModelConfig):

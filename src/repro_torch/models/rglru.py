@@ -42,7 +42,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.layers import _dense_init, _device, _dtype, gelu
+from repro_torch.models.layers import (_dense_init, _device, _dtype, fan,
+                                       gelu, saves_for_backward)
 from repro_torch.models.ssm import _causal_conv
 
 Params = Dict[str, Any]
@@ -136,29 +137,31 @@ def linear_scan(log_a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def _conv(p: Params, x_res: torch.Tensor,
           tail: Optional[torch.Tensor] = None):
     """The input branch's projection and causal conv -> (xr, new tail).
-    Where autograd records the conv (training), its SiLU's last product
-    rounds to the activation dtype; elsewhere (eval, prefill, decode) it
-    stays f32.  So does the JAX package's compiled model: a forward alone
-    hands that product to ``_gates``' f32 upcast unrounded, but under
+    Where autograd saves the conv for the backward (training), its SiLU's
+    last product rounds to the activation dtype; elsewhere (eval, prefill,
+    decode, and the first forward of a checkpointed region) it stays f32.
+    So does the JAX package's compiled model: a forward alone hands that
+    product to ``_gates``' f32 upcast unrounded, but under
     ``jax.value_and_grad`` it is a residual of the backward pass, and XLA
-    materialises it in bf16.  Under ``jax.checkpoint`` the reference's
-    forward keeps it f32 again; the port's checkpointed forward is
-    recorded and rounds, so that ``remat`` leaves the port's values as
-    they are (``tests/test_torch_remat.py``)."""
+    materialises it in bf16; under ``jax.checkpoint`` the forward keeps
+    no residual and the product f32, and the backward's recompute rounds
+    it (``layers.saves_for_backward``)."""
     xw = x_res @ p["w_rec"]
     return _causal_conv(xw, p["conv_w"], p["conv_b"], tail=tail,
-                        f32_out=not xw.requires_grad)
+                        f32_out=not saves_for_backward(xw))
 
 
 def rglru_forward(cfg: ModelConfig, p: Params,
                   x_res: torch.Tensor) -> torch.Tensor:
     """x_res (B, S, D) -> (B, S, D).  The conv's last product stays f32
-    unless autograd records it (``_conv``)."""
-    branch_g = gelu((x_res @ p["w_gelu"]).float())
-    xr, _ = _conv(p, x_res)
+    unless autograd saves it (``_conv``)."""
+    dt = p["w_out"].dtype
+    xg, xc = fan(x_res, 2, dt)
+    branch_g = gelu((xg @ p["w_gelu"]).float())
+    xr, _ = _conv(p, xc)
     log_a, b = _gates(p, xr)
     h = linear_scan(log_a, b)
-    return (branch_g * h).to(x_res.dtype) @ p["w_out"]
+    return (branch_g * h).to(dt) @ p["w_out"]
 
 
 def init_rglru_cache(cfg: ModelConfig, batch: int, dtype,

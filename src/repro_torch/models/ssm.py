@@ -19,8 +19,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, SSMConfig
 from repro_torch.kernels import ops as K
-from repro_torch.models.layers import (_dense_init, _device, _dtype, silu,
-                                       silu_f32)
+from repro_torch.models.layers import (_dense_init, _device, _dtype,
+                                       broadcast_add, broadcast_mul, fan,
+                                       silu, silu_f32)
 
 Params = Dict[str, Any]
 
@@ -79,11 +80,15 @@ def _causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
         xp = F.pad(x, (0, 0, W - 1, 0))
     else:
         xp = torch.cat([tail.to(x.dtype), x], dim=1)
-    out = xp[:, 0:x.shape[1], :] * w[0]
+    # the weights' and bias's gradients sum over (B, S) as the reference's
+    # backward sums them (``layers.broadcast_mul``)
+    s = x.shape[1]
+    out = broadcast_mul(xp[:, 0:s, :], w[0], (0, 1))
     for i in range(1, W):
-        out = out + xp[:, i:i + x.shape[1], :] * w[i]
+        out = out + broadcast_mul(xp[:, i:i + s, :], w[i], (0, 1))
     new_tail = xp[:, -(W - 1):, :] if W > 1 else None
-    return (silu_f32 if f32_out else silu)(out + b), new_tail
+    return ((silu_f32 if f32_out else silu)(broadcast_add(out, b, (0, 1))),
+            new_tail)
 
 
 def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
@@ -96,6 +101,7 @@ def _gated_norm(y: torch.Tensor, z: torch.Tensor, scale: torch.Tensor,
 def ssm_forward(cfg: ModelConfig, p: Params,
                 x_res: torch.Tensor) -> torch.Tensor:
     """Chunked SSD over a full sequence.  x_res: (B, S, D) -> (B, S, D)."""
+    (x_res,) = fan(x_res, 1, p["w_in"].dtype)
     s, d_in, H = _dims(cfg)
     Bsz, S, _ = x_res.shape
     Q = min(s.chunk_size, S)

@@ -19,13 +19,16 @@ Decoding keeps the JAX package's cache layout (``init_cache``: ``pos``, then
 per layer a KV ring with absolute ``k_pos`` or a recurrent (SSM or RG-LRU)
 state and conv tail, blocks stacked on the group axis) and updates it in
 place: ``decode_step`` writes each layer's new rows into the cache's
-tensors and advances ``cache["pos"]``.  ``pos`` is a 0-dim tensor, as in the JAX package, or a
-(B,) tensor: then every row has its own position clock (rope, ring slot,
-``k_pos`` mask) and MoE layers route each row as a capacity group of its
-own, which is what the JAX serving engine gets by vmapping a one-row step.
+tensors and advances ``cache["pos"]``; inside a group each layer hands its
+f32 sum on to the next, as ``forward``'s layers do.  ``pos`` is a 0-dim
+tensor, as in the JAX package, or a (B,) tensor: then every row has its
+own position clock (rope, ring slot, ``k_pos`` mask) and MoE layers route
+each row as a capacity group of its own, which is what the JAX serving
+engine gets by vmapping a one-row step.
 """
 from __future__ import annotations
 
+import contextlib
 from typing import Any, Dict, List, Optional, Tuple
 
 import torch
@@ -155,9 +158,12 @@ def residual_norm(cfg: ModelConfig, x: torch.Tensor, y: torch.Tensor,
     """(x + y rounded to x's dtype, the norm of the sum read in f32): XLA
     fuses the add into the norm's f32 upcast in the JAX package's compiled
     layer (bit for bit in bf16); the residual stream carries the rounded
-    sum."""
+    sum.  In the backward the norm's input gradient is rounded to x's
+    dtype before it meets the residual's, as XLA's compiled pullback of
+    the bf16 add rounds it (``layers.round_grad``)."""
     xs = x.float() + y.float()
-    return xs.to(x.dtype), L.rms_norm(xs, scale, cfg.norm_eps, x.dtype)
+    return xs.to(x.dtype), L.rms_norm(L.round_grad(xs, x.dtype), scale,
+                                      cfg.norm_eps, x.dtype, held=True)
 
 
 def _add(x: torch.Tensor, y: torch.Tensor, hand_on: bool) -> torch.Tensor:
@@ -203,7 +209,7 @@ def apply_layer(cfg: ModelConfig, p: Params, kind: str, x: torch.Tensor,
     is, the residual its rounding; and with ``hand_on`` the layer returns
     its own output that way (``forward`` says where)."""
     dt = L._dtype(cfg)
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps, dt)
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps, dt, held=True)
     x = x.to(dt)
     if kind == "ssm":
         y = S.ssm_forward(cfg, p["ssm"], h)
@@ -219,10 +225,15 @@ def apply_layer(cfg: ModelConfig, p: Params, kind: str, x: torch.Tensor,
 
 
 def decode_layer(cfg: ModelConfig, p: Params, kind: str, cache: Params,
-                 x: torch.Tensor, pos: torch.Tensor) -> torch.Tensor:
+                 x: torch.Tensor, pos: torch.Tensor,
+                 hand_on: bool = False) -> torch.Tensor:
     """One-token decode of x (B, 1, D) at ``pos`` (0-dim, or (B,) for a
-    clock per row); the layer's cache is updated in place."""
-    h = L.rms_norm(x, p["ln1"], cfg.norm_eps)
+    clock per row); the layer's cache is updated in place.  ``x`` and
+    ``hand_on`` as in ``apply_layer``: inside one compiled stretch of
+    layers the f32 sum is handed on to the next ``ln1``."""
+    dt = L._dtype(cfg)
+    h = L.rms_norm(x, p["ln1"], cfg.norm_eps, dt)
+    x = x.to(dt)
     if kind == "ssm":
         y, _ = S.ssm_decode_step(cfg, p["ssm"], cache, h)
     elif kind == "rglru":
@@ -232,7 +243,7 @@ def decode_layer(cfg: ModelConfig, p: Params, kind: str, cache: Params,
                                  _attn_spec(cfg, kind))
     if cfg.post_norm:
         y = L.rms_norm(y, p["ln1_post"], cfg.norm_eps)
-    x, _ = _ffn(cfg, p, x, y, per_row=pos.dim() == 1)
+    x, _ = _ffn(cfg, p, x, y, per_row=pos.dim() == 1, hand_on=hand_on)
     return x
 
 
@@ -383,15 +394,23 @@ def remat_call(remat: bool, fn, *args):
     """``fn(*args)``; with ``remat``, under non-reentrant activation
     checkpointing: autograd records the same graph, but the tensors ``fn``
     saves are dropped and recomputed by running ``fn`` again when the
-    backward pass first needs them (so the kernels in ``fn`` launch twice,
-    and the gradients are the same bits).  No forward of the zoo draws
+    backward pass first needs them (so the kernels in ``fn`` launch
+    twice).  The first forward runs under ``layers.checkpointed_forward``:
+    a value that rounds only because autograd saves it (the RG-LRU conv's
+    last product, ``rglru._conv``) stays f32 there, as under the
+    reference's ``jax.checkpoint``, and rounds in the recompute, as the
+    reference's compiled backward rounds it; so the hybrid family's remat
+    gradients differ from its plain ones as the reference's do, and every
+    other family's are the same bits.  No forward of the zoo draws
     random numbers, so the RNG state is not stashed for the recompute
     (``preserve_rng_state=False``: no get and set of the CPU and CUDA
     generators per call)."""
     if not remat:
         return fn(*args)
-    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                             preserve_rng_state=False)
+    return torch.utils.checkpoint.checkpoint(
+        fn, *args, use_reentrant=False, preserve_rng_state=False,
+        context_fn=lambda: (L.checkpointed_forward(),
+                            contextlib.nullcontext()))
 
 
 def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
@@ -484,11 +503,24 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params,
     pos = cache["pos"]
     table = params["embed"]["table"]
     x = _embed(cfg, table, token)
-    for (lp, kind), (lc, _) in zip(_layers(cfg, params),
-                                   _layers(cfg, cache)):
-        x = decode_layer(cfg, lp, kind, lc, x, pos)
 
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
+    def run(span, x, round_last):
+        for i, ((lp, kind), (lc, _)) in enumerate(span):
+            x = decode_layer(cfg, lp, kind, lc, x, pos,
+                             hand_on=i + 1 < len(span) or not round_last)
+        return x
+
+    # the stretches of ``forward``: only a scan's carry rounds
+    n_pre, n_grp, _ = structure(cfg)
+    per = len(pattern(cfg))
+    layers = list(zip(_layers(cfg, params), _layers(cfg, cache)))
+    x = run(layers[:n_pre], x, round_last=n_grp > 0)
+    for g in range(n_grp):
+        lo = n_pre + g * per
+        x = run(layers[lo:lo + per], x, round_last=True)
+    x = run(layers[n_pre + n_grp * per:], x, round_last=False)
+
+    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, L._dtype(cfg))
     cache["pos"] = pos + 1
     return L.lm_logits(cfg, table, x), cache
 

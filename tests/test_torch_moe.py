@@ -328,10 +328,25 @@ def test_kimi_compute_loss_and_grads_match_reference_bf16():
     assert _check_compute_loss("kimi-k2-1t-a32b", "bfloat16") == 1
 
 
-def _check_compute_loss(arch, dtype):
+def test_kimi_grads_match_reference_bf16_seed7():
+    """kimi-k2 smoke in bf16 at token seed 7, the seed whose router and
+    embedding gradients were 1.6-2.1 times the tolerance while the
+    backward's bf16 rounding differed from the reference's compiled one,
+    held, as the block harness holds every block, to the reference
+    compiled under ``jax.jit``: loss within 2e-3, every gradient within
+    atol 5e-3 and rtol 5e-2, ``moe_aux`` rtol 1e-4.  (Run op by op, the
+    reference rounds every op and routes one choice elsewhere at this
+    seed: its ``moe_aux`` is 2.4e-3 off its own compiled value, which the
+    port's matches to 6e-7.)"""
+    assert _check_compute_loss("kimi-k2-1t-a32b", "bfloat16", seed=7,
+                               jit=True) == 1
+
+
+def _check_compute_loss(arch, dtype, seed=5, jit=False):
     """``compute_loss`` of ``arch``'s smoke config, from the reference's
-    init on token seed 5, against ``jax.value_and_grad`` of the
-    reference's; returns the number of router leaves checked."""
+    init on token seed ``seed``, against ``jax.value_and_grad`` of the
+    reference's (compiled under ``jax.jit`` with ``jit``); returns the
+    number of router leaves checked."""
     jax = pytest.importorskip("jax")
     import jax.numpy as jnp
     from repro.kernels.config import KernelConfig
@@ -339,16 +354,16 @@ def _check_compute_loss(arch, dtype):
     r_cfg = dataclasses.replace(R_R.get_smoke_config(arch),
                                 dtype=dtype,
                                 kernels=KernelConfig(backend="pallas"))
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
     tok = rng.integers(0, r_cfg.vocab_size, size=(2, 32)).astype(np.int32)
     lab = rng.integers(0, r_cfg.vocab_size, size=(2, 32)).astype(np.int32)
     with jax.default_device(jax.devices("cpu")[0]):
         r_params, _ = R_R.init_params(r_cfg, jax.random.PRNGKey(0))
         batch = {"tokens": jnp.asarray(tok), "labels": jnp.asarray(lab),
                  "loss_mask": jnp.ones((2, 32), jnp.float32)}
-        (r_loss, r_parts), r_grads = jax.value_and_grad(
-            lambda p: R_R.compute_loss(r_cfg, p, batch), has_aux=True)(
-                r_params)
+        vg = jax.value_and_grad(lambda p: R_R.compute_loss(r_cfg, p, batch),
+                                has_aux=True)
+        (r_loss, r_parts), r_grads = (jax.jit(vg) if jit else vg)(r_params)
     params = T_FS.params_from_reference(_paths(r_params), "cpu")
     flat = [leaf.requires_grad_() for _, leaf in tree_paths(params)]
     cfg = dataclasses.replace(T_R.get_smoke_config(arch),
