@@ -390,15 +390,46 @@ compiled backward and decode step, on the card against the CPU:
    step, flash once per encoder layer (seamless's encoder, run once for
    the cross caches), nothing else.
 
+Phase 45 runs one model sharded over a (data, model) mesh of ranks:
+
+45. stablelm-1.6b at full width and 4 of 24 layers (``SHARD_RUN``; at 24
+   the whole script passed 1,000 s):
+   ``build_train_artifacts`` and ``build_prefill_artifacts`` on a 2 x 2
+   mesh of 4 gloo ranks sharing the card (``launch.mesh.make_rank_mesh``;
+   FSDP over data, head-parallel attention, column/row-parallel MLP and a
+   vocab-parallel head over model), global batch 8 x seq 512, Adam lr
+   3e-4, remat: one prefill and 2 train steps, from the same init (each
+   rank draws its blocks from the unsharded init's generator stream) and
+   batches as an unsharded run of the same steps on the card first (its
+   memory freed before the ranks start; its new params, its logits and
+   a control's, the logits of a prefill after its first step, kept on
+   the host for the ranks to read).  Counters zeroed just before the
+   ranks' run and read just after: flash launched twice a layer a step
+   (remat) and once a layer in the prefill on every rank, nothing else.  Checks:
+   each step's loss within 2e-3 and ``grad_norm`` within 2e-3 (the first
+   step) and 5e-2 (the second) of itself of the unsharded run's; each
+   rank's update of each param block against the unsharded run's (the
+   norm of their difference over the norm of the unsharded update) and
+   its block of the prefill logits against the unsharded run's slice,
+   nearer than the control's (``SHARD_TOL``); the first step's gradient
+   blocks (the step's own, kept by the optimizer's update) by per-block
+   digests (the sum of squares and a seeded random projection,
+   ``SHARD_TOL["digest"]``);
+   flash held on a rank's own first call's inputs against its plain
+   version, whole and as the second half of its query rows at
+   ``q_offset`` (2 bf16 ulps), and timed beside its bound and SDPA.
+   Prints the phase's wall, each rank's collective bytes by kind, its
+   peak and its flash launches.
+
 Prints ``{"aggregate_shapes"}``, ``{"fused_sgd_shapes"}``, ``{"lm": ...}``,
 ``{"mamba2": ...}``, ``{"serving": ...}``, ``{"mesh": ...}``, ``{"arena":
 ...}``, ``{"convergence": ...}``, ``{"sigkill_resume": ...}``,
 ``{"lm_snapshot": ...}``, ``{"hybrid": ...}``, ``{"moe_train": ...}``,
 ``{"vlm": ...}``, ``{"encdec": ...}``, ``{"legacy": ...}``, ``{"train":
 ...}``, ``{"remat": ...}``, ``{"pods": ...}``, ``{"counted": ...}``,
-``{"tools": ...}``, ``{"repairs": ...}``, ``{"kernels": [...]}`` (the
-three mesh twins as row 3, then phases 26, 29,
-33, 34, 36, 41, 42, 38, 39, 40 and 41's shapes),
+``{"tools": ...}``, ``{"repairs": ...}``, ``{"sharded": ...}``,
+``{"kernels": [...]}`` (the three mesh twins as row 3, then phases 26,
+29, 33, 34, 36, 41, 42, 38, 39, 40, 41 and 45's shapes),
 ``{"script": ...}`` and ``{"sim": {...}}`` lines, the card's name and power
 limit and, as the last line, ``{"ok": true, "device": {...}}``.
 """
@@ -677,10 +708,11 @@ def recorder(counter, agg, fa=None):
                  col_ids is not None)] += 1
         return agg(W, X, col_ids, **kw)
 
-    def rec_fa(q, k, v, causal=True, window=None, softcap=None):
+    def rec_fa(q, k, v, causal=True, window=None, softcap=None,
+               q_offset=0):
         counter[("flash_attention", tuple(q.shape), k.shape[1], q.dtype,
                  causal, window, softcap)] += 1
-        return fa(q, k, v, causal, window, softcap)
+        return fa(q, k, v, causal, window, softcap, q_offset)
 
     return rec_agg, rec_fa
 
@@ -1878,11 +1910,12 @@ def hybrid_fleet_phase(gen, dev, mech) -> tuple:
     orig_agg, orig_fa = AGG.aggregate, FA.flash_attention
     rec_agg, rec_fa = recorder(shapes, orig_agg, orig_fa)
 
-    def rec_views(q, k, v, causal=True, window=None, softcap=None):
+    def rec_views(q, k, v, causal=True, window=None, softcap=None,
+                  q_offset=0):
         # the model's own q/k/v views reach the kernel (no aligning copy)
         views.add(tuple((tuple(t.stride()), t.data_ptr() % 16)
                         for t in (q, k, v)))
-        return rec_fa(q, k, v, causal, window, softcap)
+        return rec_fa(q, k, v, causal, window, softcap, q_offset)
 
     torch.cuda.empty_cache()
     held = torch.cuda.memory_allocated()
@@ -2130,10 +2163,11 @@ def keep_inputs(kept, agg, fa, router):
               W, X, col_ids)
         return agg(W, X, col_ids, **kw)
 
-    def rec_fa(q, k, v, causal=True, window=None, softcap=None):
+    def rec_fa(q, k, v, causal=True, window=None, softcap=None,
+               q_offset=0):
         first(("flash_attention", tuple(q.shape), k.shape[1], str(q.dtype),
                causal, window, softcap), q, k, v)
-        return fa(q, k, v, causal, window, softcap)
+        return fa(q, k, v, causal, window, softcap, q_offset)
 
     def rec_router(logits, top_k):
         first(("moe_router", tuple(logits.shape), top_k), logits)
@@ -2337,13 +2371,14 @@ def flash_keeper(kept: dict, calls: Counter, fa):
     (shape, kv heads, dtype, mask) key and keeps a copy of the inputs of
     each key's first call (the kernel's own counter stays the only proof
     of launches)."""
-    def rec_fa(q, k, v, causal=True, window=None, softcap=None):
+    def rec_fa(q, k, v, causal=True, window=None, softcap=None,
+               q_offset=0):
         key = ("flash_attention", tuple(q.shape), k.shape[1], str(q.dtype),
                causal, window, softcap)
         calls[key] += 1
         if key not in kept:
             kept[key] = tuple(t.detach().clone() for t in (q, k, v))
-        return fa(q, k, v, causal, window, softcap)
+        return fa(q, k, v, causal, window, softcap, q_offset)
     return rec_fa
 
 
@@ -3838,6 +3873,419 @@ def chunked_loss_phase(dev) -> dict:
     return out
 
 
+# phase 45: one model sharded over a (data, model) mesh of 4 gloo ranks on
+# the card.  Bounds (tests/test_torch_sharded.py's shared bf16 ones): loss
+# 2e-3; grad_norm 2e-3 of itself at the first step, where both runs hold
+# the same params, and the gradients' rtol 5e-2 at the second, whose
+# params already differ (below); a gradient block's digests within 10 % of
+# its norm (bf16: the gap grows through the layers' backward, 5.1 % at 24
+# layers with bf16 psums; a dropped psum or a wrong block reads 100 %).
+# The update itself: per leaf block, the norm of the two runs' difference
+# in new params over the norm of the unsharded run's update (Adam moves an
+# element by about lr a step whatever its gradient, so an element whose
+# tiny gradient changes sign between two sum orders moves the other way;
+# a skipped update reads 1, a sign-flipped one 2; sound runs read 0.089
+# on an H100).  The prefill logits within ``logits_ulps`` bf16 ulps of the
+# largest (sound runs read 1), and the same logits against the unsharded
+# prefill after one step (a stale replica, ~90 ulps) beyond it
+SHARD_RUN = dict(arch="stablelm-1.6b", n_layers=4, mesh=(2, 2), batch=8,
+                 seq=512, lr=3e-4, steps=2, seed=0)
+SHARD_TOL = dict(loss=2e-3, grad_norm=(2e-3, 5e-2), update=0.3,
+                 logits_ulps=2, digest=0.1)
+
+
+def shard_cfg():
+    """Phase 45's model: stablelm-1.6b at full width, its depth cut to
+    ``SHARD_RUN["n_layers"]`` of 24 (at 24 the whole script passed 1,000
+    s on an H100 80GB HBM3 at 700 W: 1,062.3 s, phase 45 78.6 s of it)."""
+    from repro_torch.models import registry as R
+    return dataclasses.replace(R.get_config(SHARD_RUN["arch"]),
+                               n_layers=SHARD_RUN["n_layers"])
+
+
+def shard_batches() -> list:
+    """Phase 45's global batches (numpy): seeded tokens and labels over the
+    vocab, every position in the loss."""
+    import numpy as np
+    run = SHARD_RUN
+    cfg = shard_cfg()
+    rng = np.random.default_rng(run["seed"])
+    shape = (run["batch"], run["seq"])
+    return [{"tokens": rng.integers(0, cfg.vocab_size, shape).astype(
+                 np.int32),
+             "labels": rng.integers(0, cfg.vocab_size, shape).astype(
+                 np.int32),
+             "loss_mask": np.ones(shape, np.float32)}
+            for _ in range(run["steps"])]
+
+
+def block_digests(leaves, specs, mesh, ranks) -> list:
+    """For each leaf (whole, or this rank's block where ``ranks`` is None)
+    and each rank's block of it: (sum of squares, the sum of its product
+    with a seeded N(0, 1) tensor of the leaf's whole shape, cut the same
+    way), in f32 on the card."""
+    import torch
+    from repro_torch.launch.mesh import rank_view
+    from repro_torch.sharding import rules as SR
+    out = []
+    for i, (t, spec) in enumerate(zip(leaves, specs)):
+        shape = (SR.global_shape(t.shape, spec, mesh) if ranks is None
+                 else tuple(t.shape))
+        r = torch.randn(shape, generator=torch.Generator("cuda").manual_seed(
+            1000 + i), device="cuda")
+        rows = []
+        for rk in ([None] if ranks is None else ranks):
+            if rk is None:
+                blk, rr = t.float(), SR.local_slice(r, spec, mesh)
+            else:
+                view = rank_view(mesh, rk)
+                blk = SR.local_slice(t, spec, view).float()
+                rr = SR.local_slice(r, spec, view)
+            rows.append((float(torch.sum(blk * blk)),
+                         float(torch.sum(blk * rr))))
+        out.append(rows)
+        del r
+    return out
+
+
+def first_grads(opt, keep: dict):
+    """``opt`` whose update keeps the first gradient tree it is given in
+    ``keep["grads"]``: the train step's own gradient, read after the
+    run."""
+    def update(grads, state, params):
+        keep.setdefault("grads", grads)
+        return opt.update(grads, state, params)
+    return dataclasses.replace(opt, update=update)
+
+
+def shard_reference(batches, ref_path: pathlib.Path) -> dict:
+    """Phase 45's unsharded run on the card: the prefill on the init and
+    the 2 train steps (the first step's gradient as digests of every
+    rank's block); its new params, its logits and the logits of a prefill
+    after the first step (the control) saved on the host for the ranks."""
+    import torch
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import steps as S
+    from repro_torch.models import registry as R
+    from repro_torch.optim import get_optimizer
+    from repro_torch.tree import tree_paths
+    run = SHARD_RUN
+    cfg = shard_cfg()
+    dev = torch.device("cuda")
+    mesh = MESH.Mesh(("data", "model"), run["mesh"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, torch.Generator(dev).manual_seed(run["seed"]))
+    bs = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+          for b in batches]
+    opt = get_optimizer("adam", run["lr"])
+    art = S.build_train_artifacts(
+        cfg, S.ShapeSpec("shard", run["seq"], run["batch"], "train"), mesh,
+        opt)
+    specs = [sp for _, sp in tree_paths(art.in_shardings[0])]
+    logits = S.make_prefill_step(cfg)(params, bs[0])
+    first = {}
+    step = S.make_train_step(cfg, first_grads(opt, first))
+    state = opt.init(params)
+    metrics = []
+    for b in bs:
+        params, state, m = step(params, state, b)
+        metrics.append({k: float(v) for k, v in m.items()})
+        if len(metrics) == 1:        # the control: a replica one step on
+            stepped = S.make_prefill_step(cfg)(params, bs[0])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    digests = block_digests([g for _, g in tree_paths(first.pop("grads"))],
+                            specs, mesh, range(mesh.n_devices))
+    torch.save({"params": [t.cpu() for _, t in tree_paths(params)],
+                "logits": logits.cpu(), "stepped": stepped.cpu()}, ref_path)
+    del params, state, logits, stepped, bs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"metrics": metrics, "digests": digests, "wall_s": wall,
+            "max_memory_allocated_bytes": peak}
+
+
+def shard_flash_row(ins, calls: list, label: str) -> dict:
+    """Flash on a rank's own first call's inputs against its plain
+    version, whole and as the second half of the query rows at
+    ``q_offset`` (2 bf16 ulps each), timed beside its bound and SDPA."""
+    import torch
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import loopcost as LC
+    q, k, v, causal, window, softcap = ins
+    got = FA.flash_attention(q, k, v, causal, window, softcap)
+    want = FA.flash_attention_plain(q, k, v, causal, window, softcap)
+    half = q.shape[2] // 2
+    rows = q[:, :, half:]
+    got_off = FA.flash_attention(rows, k, v, causal, window, softcap,
+                                 q_offset=half)
+    want_off = FA.flash_attention_plain(rows, k, v, causal, window, softcap,
+                                        q_offset=half)
+    torch.cuda.synchronize()
+    ulps = bf16_ulps(got.float(), want.float())
+    ulps_off = bf16_ulps(got_off.float(), want_off.float())
+    check(bool(torch.isfinite(got).all()) and ulps <= 2.0
+          and ulps_off <= 2.0,
+          f"flash {label}: {ulps} and, at q_offset {half}, {ulps_off} bf16 "
+          f"ulps from the plain version")
+    check(torch.equal(want_off, want[:, :, half:]),
+          f"flash {label}: the plain version at an offset is not the "
+          f"whole's rows")
+    b_ms, b_by = LC.flash_cost(q, k, causal, window).bound()
+    h, hk = q.shape[1], k.shape[1]
+    k_rep = k.repeat_interleave(h // hk, dim=1)
+    v_rep = v.repeat_interleave(h // hk, dim=1)
+    sdpa = lambda: torch.nn.functional.scaled_dot_product_attention(
+        q, k_rep, v_rep, is_causal=causal)
+    return {"label": label, "shape": list(q.shape), "kv_heads": hk,
+            "dtype": str(q.dtype), "causal": causal, "window": window,
+            "softcap": softcap, "calls": calls, "max_bf16_ulps": ulps,
+            "max_bf16_ulps_at_offset": ulps_off, "q_offset": half,
+            "max_abs_err": max(
+                float((got.float() - want.float()).abs().max()),
+                float((got_off.float() - want_off.float()).abs().max())),
+            "ms": device_ms(lambda: FA.flash_attention(q, k, v, causal), 20),
+            "ms_at_offset": device_ms(lambda: FA.flash_attention(
+                rows, k, v, causal, q_offset=half), 20),
+            "plain_ms": device_ms(lambda: FA.flash_attention_plain(
+                q, k, v, causal), 5),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "library": "scaled_dot_product_attention",
+            "library_ms": device_ms(sdpa, 20)}
+
+
+def shard_rank(plan: dict) -> list:
+    """One gloo rank of phase 45: its blocks drawn from the unsharded
+    init's stream, then (counters zeroed, a cost counter on) the prefill
+    and 2 train steps; its update of each param block and its logits
+    against the unsharded run's slices (the logits also against the
+    control's), its first step's gradient (kept by the optimizer's
+    update) as digests; flash on its own first inputs (timed one rank at
+    a time).  Every rank's results, gathered (no CUDA tensor leaves the
+    rank)."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.kernels import flash_attention as FA
+    from repro_torch.launch import loopcost as LC
+    from repro_torch.launch import mesh as MESH
+    from repro_torch.launch import steps as S
+    from repro_torch.models import registry as R
+    from repro_torch.optim import get_optimizer
+    from repro_torch.sharding import rules as SR
+    from repro_torch.tree import tree_map, tree_paths
+    run = SHARD_RUN
+    cfg = shard_cfg()
+    dev = torch.device("cuda")
+    mesh = MESH.make_rank_mesh(("data", "model"), run["mesh"], "cuda")
+    opt = get_optimizer("adam", run["lr"])
+    shape = S.ShapeSpec("shard", run["seq"], run["batch"], "train")
+    first = {}
+    art = S.build_train_artifacts(cfg, shape, mesh, first_grads(opt, first))
+    pre = S.build_prefill_artifacts(
+        cfg, S.ShapeSpec("shard", run["seq"], run["batch"], "prefill"), mesh)
+    specs = [sp for _, sp in tree_paths(art.in_shardings[0])]
+    t0 = time.perf_counter()
+    params = R.init_params(cfg, torch.Generator(dev).manual_seed(
+        run["seed"]), mesh, art.rules)
+    init_s = time.perf_counter() - t0
+    bs = [SR.local_tree({k: torch.from_numpy(v).to(dev)
+                         for k, v in b.items()}, art.in_shardings[2], mesh)
+          for b in plan["batches"]]
+    kept, calls = {}, []
+    orig_fa = FA.flash_attention
+
+    def rec_fa(q, k, v, causal=True, window=None, softcap=None,
+               q_offset=0):
+        calls.append(1)
+        if not kept:
+            kept["ins"] = tuple(t.detach().clone() for t in (q, k, v)) + (
+                causal, window, softcap)
+        return orig_fa(q, k, v, causal, window, softcap, q_offset)
+
+    init = [t.clone() for _, t in tree_paths(params)]
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    FA.flash_attention = rec_fa
+    try:
+        zero_counters()
+        with LC.CostCounter() as counter:
+            t0 = time.perf_counter()
+            logits = pre.step_fn(params, bs[0])
+            torch.cuda.synchronize()
+            prefill_s = time.perf_counter() - t0
+            state, metrics, step_s = opt.init(params), [], []
+            for b in bs:
+                t0 = time.perf_counter()
+                params, state, m = art.step_fn(params, state, b)
+                torch.cuda.synchronize()
+                step_s.append(time.perf_counter() - t0)
+                metrics.append({k: float(v) for k, v in m.items()})
+        launches = read_counters()
+    finally:
+        FA.flash_attention = orig_fa
+    peak = torch.cuda.max_memory_allocated()
+    ref = torch.load(plan["ref_path"], mmap=True, map_location="cpu")
+    lr, update, worst_lr, beyond = run["lr"], [], 0.0, 0
+    for (_, got), spec, whole, was in zip(tree_paths(params), specs,
+                                          ref["params"], init):
+        want = SR.local_slice(whole, spec, mesh).to(dev).float()
+        gap = got.float() - want
+        update.append(float(torch.linalg.vector_norm(gap)) / max(float(
+            torch.linalg.vector_norm(want - was.float())), 1e-30))
+        ulp = torch.exp2(torch.floor(torch.log2(torch.maximum(
+            got.float().abs(), want.abs()).clamp_min(2.0 ** -126))) - 7)
+        worst_lr = max(worst_lr, float(gap.abs().max()) / lr)
+        beyond += int((gap.abs() > ulp).sum())
+        del want, gap, ulp
+    del init
+    want = SR.local_slice(ref["logits"], pre.out_shardings, mesh).to(dev)
+    top = float(want.abs().max())
+    logit_ulp = 2.0 ** (int(torch.floor(torch.log2(torch.tensor(top)))) - 7)
+    logit_gap = float((logits - want).abs().max())
+    del want
+    stale = SR.local_slice(ref["stepped"], pre.out_shardings, mesh).to(dev)
+    stale_gap = float((logits - stale).abs().max())
+    del ref, stale, logits
+    digests = block_digests([g for _, g in tree_paths(first.pop("grads"))],
+                            specs, mesh, None)
+    del state
+    torch.cuda.empty_cache()
+    flash = rank_serial(lambda: shard_flash_row(
+        kept["ins"], len(calls), f"sharded train, rank {dist.get_rank()}"))
+    del kept
+    out = {"rank": dist.get_rank(), "coords": list(mesh.coords),
+           "init_s": init_s, "prefill_s": prefill_s, "step_s": step_s,
+           "metrics": metrics, "launches": launches,
+           "collective_bytes": dict(counter.collectives),
+           "collective_calls": dict(counter.collective_calls),
+           "counted_flops": counter.dot_flops,
+           "max_memory_allocated_bytes": peak,
+           "update_gap": max(update), "update_gap_by_leaf": update,
+           "params_max_gap_lr": worst_lr,
+           "params_beyond_one_ulp": beyond,
+           "params_numel": sum(t.numel() for _, t in tree_paths(params)),
+           "logits_max_abs_gap": logit_gap, "logits_ulp": logit_ulp,
+           "logits_stale_gap": stale_gap,
+           "digests": digests, "flash": flash}
+    every = [None] * dist.get_world_size()
+    dist.all_gather_object(every, out)
+    return every
+
+
+def sharded_phase(smi: str, root: pathlib.Path) -> tuple:
+    """Phase 45 (see the module docstring): the unsharded reference run,
+    then 4 gloo ranks sharing the card, and the checks."""
+    import torch
+    from repro_torch.launch import mesh as MESH
+    run = SHARD_RUN
+    cfg = shard_cfg()
+    t_phase = time.perf_counter()
+    root.mkdir(parents=True, exist_ok=True)
+    ref_path = root / "reference.pt"
+    batches = shard_batches()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref = shard_reference(batches, ref_path)
+    t0 = time.perf_counter()
+    try:
+        ranks = MESH.spawn(shard_rank, int(torch.tensor(run["mesh"]).prod()),
+                           {"batches": batches, "ref_path": str(ref_path)},
+                           device="cuda")
+    finally:
+        ref_path.unlink(missing_ok=True)
+    spawn_wall = time.perf_counter() - t0
+    flash_per_rank = cfg.n_layers * (2 * run["steps"] + 1)
+    tol = SHARD_TOL
+    failed = []              # every check's message, raised together
+
+    def expect(ok, msg):
+        if not ok:
+            failed.append(msg)
+
+    for rk in ranks:
+        i = rk["rank"]
+        expect(rk["launches"]["flash_attention"] == flash_per_rank
+               and sum(rk["launches"].values()) == flash_per_rank,
+               f"sharded rank {i}: launches {rk['launches']}, expected "
+               f"flash {flash_per_rank} and nothing else")
+        for s_, (got, want) in enumerate(zip(rk["metrics"],
+                                             ref["metrics"])):
+            expect(abs(got["loss"] - want["loss"]) <= tol["loss"]
+                   and abs(got["grad_norm"] - want["grad_norm"])
+                   <= tol["grad_norm"][s_] * want["grad_norm"],
+                   f"sharded rank {i}, step {s_}: metrics {got} against "
+                   f"the unsharded {want}")
+        expect(rk["metrics"] == ranks[0]["metrics"],
+               f"sharded rank {i}: metrics differ from rank 0's")
+        expect(rk["update_gap"] <= tol["update"],
+               f"sharded rank {i}: a param block's update is "
+               f"{rk['update_gap']:.3f} of its norm from the unsharded "
+               f"run's")
+        expect(rk["logits_max_abs_gap"] <= tol["logits_ulps"]
+               * rk["logits_ulp"] < rk["logits_stale_gap"],
+               f"sharded rank {i}: prefill logits differ by "
+               f"{rk['logits_max_abs_gap']} from the unsharded run's and "
+               f"by {rk['logits_stale_gap']} from its prefill one step on "
+               f"(bf16 ulp of the largest {rk['logits_ulp']})")
+        for leaf, (got, want) in enumerate(zip(rk["digests"],
+                                               ref["digests"])):
+            (sq, pr), (wsq, wpr) = got[0], want[i]
+            norm = wsq ** 0.5
+            expect(abs(sq ** 0.5 - norm) <= tol["digest"] * norm
+                   and abs(pr - wpr) <= tol["digest"] * norm,
+                   f"sharded rank {i}: gradient leaf {leaf}'s block "
+                   f"digests ({sq}, {pr}) against the unsharded run's "
+                   f"({wsq}, {wpr})")
+    worst_digest = max(
+        max(abs(g[0][0] ** 0.5 - w[rk["rank"]][0] ** 0.5),
+            abs(g[0][1] - w[rk["rank"]][1])) / max(w[rk["rank"]][0] ** 0.5,
+                                                    1e-30)
+        for rk in ranks for g, w in zip(rk["digests"], ref["digests"]))
+    flash = ranks[0]["flash"]
+    flash["launches_per_rank"] = [rk["launches"]["flash_attention"]
+                                  for rk in ranks]
+    flash["max_bf16_ulps"] = max(rk["flash"]["max_bf16_ulps"]
+                                 for rk in ranks)
+    out = {"config": f"{run['arch']} get_config() at n_layers="
+                     f"{run['n_layers']} (of 24; full width), "
+                     f"build_train_artifacts / build_prefill_artifacts on a "
+                     f"{run['mesh'][0]} x {run['mesh'][1]} (data, model) "
+                     f"mesh of gloo ranks sharing cuda:0, global batch "
+                     f"{run['batch']} x seq {run['seq']}, adam lr "
+                     f"{run['lr']}, remat, {run['steps']} steps and one "
+                     f"prefill, init seed {run['seed']}",
+           "card": smi, "tolerance": tol,
+           "reference": {k: v for k, v in ref.items() if k != "digests"},
+           "spawn_wall_s": spawn_wall,
+           "phase_wall_s": time.perf_counter() - t_phase,
+           "worst_digest_over_norm": worst_digest,
+           "ranks": [{k: v for k, v in rk.items()
+                      if k not in ("digests", "flash")} for rk in ranks]}
+    for rk in out["ranks"]:
+        print(f"sharded rank {rk['rank']} {rk['coords']}: steps "
+              f"{rk['step_s']} s, prefill {rk['prefill_s']:.2f} s, peak "
+              f"{rk['max_memory_allocated_bytes'] / 1e9:.2f} GB, flash "
+              f"{rk['launches']['flash_attention']}, collective bytes "
+              f"{rk['collective_bytes']}, metrics {rk['metrics']}",
+              flush=True)
+    print(f"sharded: reference {ref['wall_s']:.1f} s, ranks "
+          f"{spawn_wall:.1f} s, phase {out['phase_wall_s']:.1f} s; worst "
+          f"digest gap {worst_digest:.2e} of the norm; reference metrics "
+          f"{ref['metrics']}; update gap "
+          f"{[rk['update_gap'] for rk in ranks]} of its norm, params "
+          f"worst {[rk['params_max_gap_lr'] for rk in ranks]} lr, beyond "
+          f"one ulp {[rk['params_beyond_one_ulp'] for rk in ranks]}; "
+          f"logits {[rk['logits_max_abs_gap'] for rk in ranks]} (ulp "
+          f"{[rk['logits_ulp'] for rk in ranks]}), one step on "
+          f"{[rk['logits_stale_gap'] for rk in ranks]}", flush=True)
+    check(not failed, "phase 45: " + "; ".join(failed))
+    return out, flash
+
+
 def main() -> int:
     t_script = time.perf_counter()
     phase_starts = {}
@@ -4808,6 +5256,10 @@ def main() -> int:
     # ---- 44. the repaired backward and decode, card vs CPU ----------------
     lap("44")
     repairs = repair_phase()
+
+    # ---- 45. stablelm-1.6b sharded over a (data, model) mesh of ranks -----
+    lap("45")
+    sharded, sharded_flash = sharded_phase(smi, build_dir / "chip_smoke_shard")
     lap("end")
     # each group of later phases' wall, from when it and the next began
     group_walls = {f"{key}_wall_s": phase_starts[b] - phase_starts[a]
@@ -4817,10 +5269,12 @@ def main() -> int:
                                      ("phases_40_41", "40", "42"),
                                      ("phase_42", "42", "43"),
                                      ("phase_43", "43", "44"),
-                                     ("phase_44", "44", "end"))}
+                                     ("phase_44", "44", "45"),
+                                     ("phase_45", "45", "end"))}
 
     new_flash = list(ed_rows.values()) + [legacy_flash, train_flash,
-                                          remat_flash, pods_flash]
+                                          remat_flash, pods_flash,
+                                          sharded_flash]
     new_flash += [r for r in counted_rows if "kv_heads" in r]
     ssd_err = max([ssd_err] + [r["max_abs_err"] for r in counted_rows
                                if "kv_heads" not in r])
@@ -4965,6 +5419,17 @@ def main() -> int:
             "launches": r.get("calls", r.get("launches")),
             **{k: r[k] for k in ("max_abs_err", "shape", "ms", "plain_ms",
                                  "bound_ms", "bound_by", "library_ms")}})
+    kernels.append({
+        "name": "flash_attention", "path": sharded_flash["label"]
+        + " (phase 45)", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:102",
+        "launches": sharded_flash["launches_per_rank"][0],
+        **{k: sharded_flash[k] for k in (
+            "launches_per_rank", "max_abs_err", "max_bf16_ulps",
+            "max_bf16_ulps_at_offset", "q_offset", "shape", "kv_heads",
+            "causal", "ms", "ms_at_offset", "plain_ms", "bound_ms",
+            "bound_by", "library_ms", "library")}})
     for r in (legacy_flash, train_flash, remat_flash, pods_flash):
         kernels.append({
             "name": "flash_attention", "path": r["label"], "route": "cuda",
@@ -5070,6 +5535,7 @@ def main() -> int:
     print(json.dumps({"pods": {**pods, "aggregate": pods_agg_rows,
                                "flash": pods_flash}}))
     print(json.dumps({"counted": counted}))
+    print(json.dumps({"sharded": {**sharded, "flash": sharded_flash}}))
     print(json.dumps({"tools": tools}))
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"script": {"wall_s": time.perf_counter() - t_script,

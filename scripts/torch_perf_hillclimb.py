@@ -8,13 +8,17 @@ every rung land side by side under ``experiments/dryrun_torch/``.
 
     PYTHONPATH=src python scripts/torch_perf_hillclimb.py [h1|h2|h3 ...]
 
-What the port's count can see: the count is of one unsharded step at the
-H100's peaks, so a rung that only changes the sharding rules
-(``rule_overrides``) or the paper-mode rules context (``paper_ctx``)
-moves no FLOP and no byte of it (only the resident bytes a device holds),
-and there is no collective term (``t_coll`` prints ``n/a``).  A rung with
-``attn_impl="chunked"`` moves nothing on a model without a prefix: its
-self-attention runs the flash kernel whatever ``attn_impl`` says.
+What the port's count can see: a dense-family train or prefill step (h1)
+is counted as one rank's own sharded run on ``meta``, so a rung that
+changes the sharding rules (``rule_overrides``: h1's ``q_seq``) moves its
+FLOPs, bytes and collective bytes, and ``t_coll`` is a number.  Every
+other step (h2's moe, h3's paper-mode round) is one unsharded step split
+evenly at the H100's peaks: a rung that only changes the rules or the
+paper-mode rules context (``paper_ctx``) moves no FLOP and no byte of it
+(only the resident bytes a device holds), and there is no collective term
+(``t_coll`` prints ``n/a``).  A rung with ``attn_impl="chunked"`` moves
+nothing on a model without a prefix: its self-attention runs the flash
+kernel whatever ``attn_impl`` says.
 """
 import pathlib
 import sys

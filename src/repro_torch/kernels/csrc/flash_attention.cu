@@ -15,7 +15,10 @@
 // heads are read in place (query head h reads kv head h / (H / Hk)) and all
 // four tensors take (b, h, s) strides, so the model's (B, S, H, D)
 // projections need no transpose copy; the ragged S edge is masked in the
-// kernel, so no padding copy exists.
+// kernel, so no padding copy exists.  q may hold Sq rows of its own, row r
+// being row q_off + r of the S-row sequence in the causal and window masks:
+// a rank's block of query rows under context-parallel attention reads the
+// whole sequence's k and v.
 //
 // Two entries, two kernels:
 //
@@ -89,7 +92,8 @@ struct Args {
   const void* k;
   const void* v;
   void* o;
-  int H, Hk, S, D;
+  int H, Hk, S, D;   // S: key rows
+  int Sq, q_off;     // query rows, and the first one's global row index
   long long q_sb, q_sh, q_ss, k_sb, k_sh, k_ss, v_sb, v_sh, v_ss;
   long long o_sb, o_sh, o_ss;
   int causal, has_window, window, has_softcap;
@@ -130,7 +134,8 @@ flash_attention_f32_kernel(const Args a) {
 
   for (int i = tid; i < kBQ * D; i += kThreads) {
     const int r = i / D, d = i % D, row = q0 + r;
-    q_s[r * LD + d] = row < S ? Q[(long long)row * a.q_ss + d] * a.scale : 0.f;
+    q_s[r * LD + d] =
+        row < a.Sq ? Q[(long long)row * a.q_ss + d] * a.scale : 0.f;
   }
   for (int r = tid; r < kBQ; r += kThreads) {
     m_s[r] = kNegInf;
@@ -147,13 +152,15 @@ flash_attention_f32_kernel(const Args a) {
   // score micro-tile: rows sy*8 + i, columns sx + 16*j
   const int sy = tid >> 4, sx = tid & 15;
 
-  // the kv rows some row of this block may attend to
+  // the kv rows some row of this block may attend to (global row indices:
+  // query row r is row q_off + r of the sequence)
+  const int g0 = a.q_off + q0;
   int kv_end = S;
-  if (a.causal) kv_end = min(S, q0 + kBQ);
+  if (a.causal) kv_end = min(S, g0 + kBQ);
   long long kv_begin = 0;
   if (a.has_window) {
-    // rows - cols < window  <=>  cols >= rows - window + 1 >= q0 - window + 1
-    const long long lo = (long long)q0 - a.window + 1;
+    // rows - cols < window  <=>  cols >= rows - window + 1 >= g0 - window + 1
+    const long long lo = (long long)g0 - a.window + 1;
     kv_begin = lo > 0 ? lo : 0;
   }
   const long long t0 = (kv_begin / kBK) * kBK;
@@ -188,7 +195,7 @@ flash_attention_f32_kernel(const Args a) {
     }
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
-      const int r = sy * 8 + i, row = q0 + r;
+      const int r = sy * 8 + i, row = g0 + r;
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int c = sx + 16 * j, col = k0 + c;
@@ -251,7 +258,7 @@ flash_attention_f32_kernel(const Args a) {
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     const int r = oy * 4 + i, row = q0 + r;
-    if (row < S) {
+    if (row < a.Sq) {
       const float l = fmaxf(l_s[r], 1e-30f);
       float* orow = O + (long long)row * a.o_ss;
 #pragma unroll
@@ -267,7 +274,7 @@ int launch_f32(const Args& a, int B, cudaStream_t stream) {
       flash_attention_f32_kernel<D>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((a.S + kBQ - 1) / kBQ, a.H, B);
+  const dim3 grid((a.Sq + kBQ - 1) / kBQ, a.H, B);
   flash_attention_f32_kernel<D><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
@@ -310,6 +317,7 @@ struct Layout {                 // byte offsets from a 1024-aligned base
 struct HArgs {
   void* o;
   int S, H, Hk, D_true, n_qt;             // n_qt: q tiles of 64 * NWG rows
+  int Sq, q_off;                          // query rows, the first's index
   long long o_sb, o_sh, o_ss;
   int causal, has_window, window, has_softcap;
   float softcap, scale;
@@ -767,19 +775,20 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   const int hk = h / (a.H / a.Hk);
   const int S = a.S;
   const int q0 = qt * kRows * NWG;
+  const int g0 = a.q_off + q0;   // the block's first row in the sequence
 
   // the kv tiles some row of this block may attend to
-  const int kv_end = a.causal ? min(S, q0 + kRows * NWG) : S;
+  const int kv_end = a.causal ? min(S, g0 + kRows * NWG) : S;
   long long kv_begin = 0;
   if (a.has_window) {
-    // rows - cols < window  <=>  cols >= rows - window + 1 >= q0 - window + 1
-    const long long lo = (long long)q0 - a.window + 1;
+    // rows - cols < window  <=>  cols >= rows - window + 1 >= g0 - window + 1
+    const long long lo = (long long)g0 - a.window + 1;
     kv_begin = lo > 0 ? lo : 0;
   }
   const int t_first = kv_begin < kv_end ? (int)(kv_begin / kRows) : 0;
   const int n_tiles =
       kv_begin < kv_end ? (kv_end + kRows - 1) / kRows - t_first : 0;
-  const int live_wgs = min(NWG, (S - q0 + kRows - 1) / kRows);
+  const int live_wgs = min(NWG, (a.Sq - q0 + kRows - 1) / kRows);
 
   if (tid == 0) {
     for (const CUtensorMap* m : {&tq, &tk, &tv})
@@ -814,8 +823,10 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
   // uniform registers (wg itself is a constant, or lane 0's value).
   const int wg = NWG == 1 ? 0 : __shfl_sync(0xffffffffu, warp / 4, 0);
   const int wq0 = q0 + wg * kRows;
+  const int gq0 = a.q_off + wq0;                      // in the sequence
   const bool live = wg < live_wgs;
   const int r_lo = wq0 + 16 * (warp % 4) + lane / 4;   // and r_lo + 8
+  const int gr_lo = a.q_off + r_lo;
   const int c_lane = 2 * (lane % 4);
   const float cap_scale = a.has_softcap ? a.scale * (1.f / a.softcap) : 0.f;
 
@@ -833,11 +844,11 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
                           &r == &kr ? 32 : 64);
   };
   auto is_edge = [&](int k0) {       // does a mask cross this tile?
-    return k0 + kRows > S || (a.causal && k0 + kRows - 1 > wq0) ||
-           (a.has_window && (long long)wq0 + kRows - 1 - k0 >= a.window);
+    return k0 + kRows > S || (a.causal && k0 + kRows - 1 > gq0) ||
+           (a.has_window && (long long)gq0 + kRows - 1 - k0 >= a.window);
   };
 
-  if (!live) {         // rows past S: wait for each tile, free it, go
+  if (!live) {         // rows past Sq: wait for each tile, free it, go
     for (int t = 0; t < n_tiles; ++t) {
       ring_acquire(kr, t);
       release(kr, t);
@@ -863,7 +874,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
     fence_acc(sc);
     release(kr, 0);
     int k0 = t_first * kRows;
-    softmax_step(sc, w.m, w.M, w.l, alpha, a, cap_scale, k0, r_lo, c_lane,
+    softmax_step(sc, w.m, w.M, w.l, alpha, a, cap_scale, k0, gr_lo, c_lane,
                  is_edge(k0));
     split_p(sc, w.p);
     // steady state: S of tile t and P V of tile t - 1 go to the tensor cores
@@ -877,7 +888,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
       fence_acc(sc);
       release(kr, t);
       k0 = (t_first + t) * kRows;
-      softmax_step(sc, w.m, w.M, w.l, alpha, a, cap_scale, k0, r_lo, c_lane,
+      softmax_step(sc, w.m, w.M, w.l, alpha, a, cap_scale, k0, gr_lo, c_lane,
                    is_edge(k0));
       fence_acc(sc);               // p and the sums are done before the wait,
       fence_acc(w.l);              // so the softmax overlaps P V on the cores
@@ -906,7 +917,7 @@ flash_attention_bf16_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
   for (int hr = 0; hr < 2; ++hr) {
     const int row = r_lo + 8 * hr;
-    if (row >= S) continue;
+    if (row >= a.Sq) continue;
     __nv_bfloat16* orow = static_cast<__nv_bfloat16*>(a.o) + b * a.o_sb +
                           h * a.o_sh + (long long)row * a.o_ss;
 #pragma unroll
@@ -975,7 +986,7 @@ int launch_bf16(const CUtensorMap& tq, const CUtensorMap& tk,
                 const CUtensorMap& tv, HArgs a, int B, int dev,
                 cudaStream_t stream) {
   using L = Layout<DP, NWG>;
-  a.n_qt = (a.S + kRows * NWG - 1) / (kRows * NWG);
+  a.n_qt = (a.Sq + kRows * NWG - 1) / (kRows * NWG);
   const long long blocks = (long long)a.n_qt * a.H * B;
   if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
   static unsigned long long attr_set = 0;   // devices whose limit is raised
@@ -1009,7 +1020,7 @@ int pick_bf16(const CUtensorMap& tq, const CUtensorMap& tk,
             cudaSuccess)
       return (int)cudaErrorInvalidValue;
     const long long pairs =
-        (long long)((a.S + 2 * kRows - 1) / (2 * kRows)) * a.H * B;
+        (long long)((a.Sq + 2 * kRows - 1) / (2 * kRows)) * a.H * B;
     if (pairs >= 2LL * n)
       return launch_bf16<DP, 2>(tq, tk, tv, a, B, dev, stream);
   }
@@ -1017,20 +1028,22 @@ int pick_bf16(const CUtensorMap& tq, const CUtensorMap& tk,
 }
 
 int run_bf16(const void* q, const void* k, const void* v, void* o, int B,
-             int H, int Hk, int S, int D, long long q_sb, long long q_sh,
+             int H, int Hk, int Sq, int S, int D, int q_off, long long q_sb,
+             long long q_sh,
              long long q_ss, long long k_sb, long long k_sh, long long k_ss,
              long long v_sb, long long v_sh, long long v_ss, long long o_sb,
              long long o_sh, long long o_ss, int causal, int has_window,
              int window, int has_softcap, float softcap, cudaStream_t stream) {
   if (D % 8 != 0 || D > 256) return (int)cudaErrorInvalidValue;
   CUtensorMap tq, tk, tv;
-  if (!make_map(&tq, q, D, S, H, B, q_ss, q_sh, q_sb) ||
+  if (!make_map(&tq, q, D, Sq, H, B, q_ss, q_sh, q_sb) ||
       !make_map(&tk, k, D, S, Hk, B, k_ss, k_sh, k_sb) ||
       !make_map(&tv, v, D, S, Hk, B, v_ss, v_sh, v_sb))
     return (int)cudaErrorInvalidValue;
   HArgs a;
   a.o = o;
   a.S = S; a.H = H; a.Hk = Hk; a.D_true = D; a.n_qt = 0;
+  a.Sq = Sq; a.q_off = q_off;
   a.o_sb = o_sb; a.o_sh = o_sh; a.o_ss = o_ss;
   a.causal = causal; a.has_window = has_window; a.window = window;
   a.has_softcap = has_softcap; a.softcap = softcap;
@@ -1040,15 +1053,20 @@ int run_bf16(const void* q, const void* k, const void* v, void* o, int B,
   return pick_bf16<256>(tq, tk, tv, a, B, stream);
 }
 
-bool valid(int B, int H, int Hk, int S, int has_softcap, float softcap) {
-  return B > 0 && H > 0 && Hk > 0 && S > 0 && H % Hk == 0 &&
+bool valid(int B, int H, int Hk, int Sq, int S, int q_off, int has_softcap,
+           float softcap) {
+  return B > 0 && H > 0 && Hk > 0 && Sq > 0 && S > 0 && H % Hk == 0 &&
+         q_off >= 0 && (long long)q_off + Sq <= INT_MAX - 64 &&
          (!has_softcap || softcap > 0.f);
 }
 
 }  // namespace
 
-// q (B, H, S, D), k and v (B, Hk, S, D), o (B, H, S, D): device arrays of one
-// dtype with unit stride along D and the given (b, h, s) element strides.
+// q (B, H, Sq, D), k and v (B, Hk, S, D), o (B, H, Sq, D): device arrays of
+// one dtype with unit stride along D and the given (b, h, s) element strides.
+// Query row r is row q_off + r of the sequence for the causal and window
+// masks (a rank's block of rows under context parallelism; 0 and Sq == S for
+// the whole sequence).
 // causal/has_window/has_softcap are 0 or 1; window may be any int (<= 0 masks
 // every column of a causal row).  Launches on `stream` and returns
 // cudaGetLastError() (0 = launched), or cudaErrorInvalidValue for sizes the
@@ -1056,16 +1074,16 @@ bool valid(int B, int H, int Hk, int S, int has_softcap, float softcap) {
 // a multiple of 8 up to 256, 16-byte aligned bases and (b, h, s) strides).
 extern "C" int repro_flash_attention_f32(
     const void* q, const void* k, const void* v, void* o, int B, int H,
-    int Hk, int S, int D, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, int causal, int has_window, int window, int has_softcap,
-    float softcap, cudaStream_t stream) {
-  if (!valid(B, H, Hk, S, has_softcap, softcap))
+    int Hk, int Sq, int S, int D, int q_off, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, int causal, int has_window, int window,
+    int has_softcap, float softcap, cudaStream_t stream) {
+  if (!valid(B, H, Hk, Sq, S, q_off, has_softcap, softcap))
     return (int)cudaErrorInvalidValue;
   Args a;
   a.q = q; a.k = k; a.v = v; a.o = o;
-  a.H = H; a.Hk = Hk; a.S = S; a.D = D;
+  a.H = H; a.Hk = Hk; a.S = S; a.D = D; a.Sq = Sq; a.q_off = q_off;
   a.q_sb = q_sb; a.q_sh = q_sh; a.q_ss = q_ss;
   a.k_sb = k_sb; a.k_sh = k_sh; a.k_ss = k_ss;
   a.v_sb = v_sb; a.v_sh = v_sh; a.v_ss = v_ss;
@@ -1078,14 +1096,15 @@ extern "C" int repro_flash_attention_f32(
 
 extern "C" int repro_flash_attention_bf16(
     const void* q, const void* k, const void* v, void* o, int B, int H,
-    int Hk, int S, int D, long long q_sb, long long q_sh, long long q_ss,
-    long long k_sb, long long k_sh, long long k_ss, long long v_sb,
-    long long v_sh, long long v_ss, long long o_sb, long long o_sh,
-    long long o_ss, int causal, int has_window, int window, int has_softcap,
-    float softcap, cudaStream_t stream) {
-  if (!valid(B, H, Hk, S, has_softcap, softcap))
+    int Hk, int Sq, int S, int D, int q_off, long long q_sb, long long q_sh,
+    long long q_ss, long long k_sb, long long k_sh, long long k_ss,
+    long long v_sb, long long v_sh, long long v_ss, long long o_sb,
+    long long o_sh, long long o_ss, int causal, int has_window, int window,
+    int has_softcap, float softcap, cudaStream_t stream) {
+  if (!valid(B, H, Hk, Sq, S, q_off, has_softcap, softcap))
     return (int)cudaErrorInvalidValue;
-  return run_bf16(q, k, v, o, B, H, Hk, S, D, q_sb, q_sh, q_ss, k_sb, k_sh,
+  return run_bf16(q, k, v, o, B, H, Hk, Sq, S, D, q_off, q_sb, q_sh, q_ss,
+                  k_sb, k_sh,
                   k_ss, v_sb, v_sh, v_ss, o_sb, o_sh, o_ss, causal,
                   has_window, window, has_softcap, softcap, stream);
 }

@@ -6,9 +6,11 @@ accumulator, output in the input dtype.  On a CUDA tensor ``flash_attention``
 launches ``csrc/flash_attention.cu``; on a CPU tensor it runs
 ``ref.flash_attention_plain``.  Unlike the TPU kernel it needs no padding
 copy (the ragged S edge is masked in the kernel), reads GQA kv heads in
-place (k/v with Hk heads, query head h reading kv head h // (H // Hk)), and
+place (k/v with Hk heads, query head h reading kv head h // (H // Hk)),
 takes strided views with a unit last dimension, so the model's (B, S, H, D)
-projections go in and out as transposed views without a copy.
+projections go in and out as transposed views without a copy, and takes a
+block of query rows at an offset in the sequence (``q_offset``: a rank's
+rows under context-parallel attention, against the whole sequence's k/v).
 
 Two kernels.  bf16, the LM path's, runs both products on the tensor cores
 (``wgmma``) over k/v tiles that TMA streams into shared memory: any D that is
@@ -31,7 +33,7 @@ from repro_torch.launch import loopcost as LC
 __all__ = ["flash_attention", "flash_attention_plain", "check_sizes",
            "check_alignment", "launches"]
 
-_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_longlong] * 12
+_ARGS = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 12
          + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_void_p])
 _SIGNATURES = {"repro_flash_attention_f32": (ctypes.c_int, _ARGS),
                "repro_flash_attention_bf16": (ctypes.c_int, _ARGS)}
@@ -47,16 +49,18 @@ BLOCK_Q = 64                    # query rows per warpgroup / f32 block
 launches = 0      # CUDA launches of this kernel; callers zero it to count a run
 
 
-def _check(q, k, v) -> None:
+def _check(q, k, v, q_offset: int = 0) -> None:
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError(f"flash_attention: q, k, v must be (B, H, S, D), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, "
                          f"{tuple(v.shape)}")
     b, h, s, d = q.shape
-    if k.shape != v.shape or k.shape[0] != b or k.shape[2:] != (s, d):
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d or \
+            not 0 <= q_offset <= q_offset + s <= k.shape[2]:
         raise ValueError(f"flash_attention: k {tuple(k.shape)} and v "
                          f"{tuple(v.shape)} must be (B, Hk, S, D) for q "
-                         f"{tuple(q.shape)}")
+                         f"{tuple(q.shape)} at rows {q_offset} onward of "
+                         f"the S-row sequence")
     if k.shape[1] == 0 or h % k.shape[1]:
         raise ValueError(f"flash_attention: {h} query heads do not group "
                          f"over {k.shape[1]} kv heads")
@@ -121,26 +125,30 @@ def check_alignment(name: str, data_ptr: int, shape, strides,
 
 
 @LC.counted("flash_attention",
-            lambda q, k, v, causal=True, window=None, softcap=None:
-            LC.flash_cost(q, k, causal, window))
+            lambda q, k, v, causal=True, window=None, softcap=None,
+            q_offset=0: LC.flash_cost(q, k, causal, window, q_offset))
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     causal: bool = True, window: Optional[int] = None,
-                    softcap: Optional[float] = None) -> torch.Tensor:
-    """(B, H, S, D) attention output, laid out like ``q``.
+                    softcap: Optional[float] = None,
+                    q_offset: int = 0) -> torch.Tensor:
+    """(B, H, Sq, D) attention output, laid out like ``q``.
 
-    ``k``/``v``: (B, Hk, S, D) with H % Hk == 0.  CPU tensors run
+    ``k``/``v``: (B, Hk, S, D) with H % Hk == 0; query row r is row
+    ``q_offset + r`` of the sequence in the causal and window masks, and
+    the rows must lie in it (by default Sq == S and the offset 0).  CPU tensors run
     ``flash_attention_plain``; ``meta`` tensors give an empty output.
     CUDA tensors launch the kernel for their dtype (f32 or bf16) at the
     sizes ``check_sizes`` takes, last dimension contiguous, and bf16
     aligned as ``check_alignment`` says; anything else raises.  Counts its
     launches in the module's ``launches``; an active
     ``launch.loopcost`` counter counts the call by ``flash_cost``."""
-    _check(q, k, v)
+    _check(q, k, v, q_offset)
     if q.device.type == "meta":
         return torch.empty_like(q)
     if q.device.type == "cpu":       # laid out like q, as the kernel's
         return torch.empty_like(q).copy_(
-            flash_attention_plain(q, k, v, causal, window, softcap))
+            flash_attention_plain(q, k, v, causal, window, softcap,
+                                  q_offset))
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention: no kernel for device {q.device}")
     if q.dtype not in _SYMBOL:
@@ -148,6 +156,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"bf16, got {q.dtype}")
     b, h, s, d = q.shape
     check_sizes(b, h, s, d, q.dtype)
+    if k.shape[2] > _INT_MAX - BLOCK_Q:
+        raise ValueError(f"flash_attention: {k.shape[2]} kv rows must lie "
+                         f"in [1, {_INT_MAX - BLOCK_Q}] (32-bit row "
+                         f"indices)")
     if softcap is not None and not softcap > 0:
         raise ValueError(f"flash_attention: softcap must be > 0, got "
                          f"{softcap}")
@@ -167,7 +179,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with torch.cuda.device(q.device):
         err = getattr(lib, _SYMBOL[q.dtype])(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            b, h, k.shape[1], s, d, *strides,
+            b, h, k.shape[1], s, k.shape[2], d, int(q_offset), *strides,
             int(causal), int(window is not None),
             0 if window is None else int(window), int(softcap is not None),
             0.0 if softcap is None else float(softcap),

@@ -72,10 +72,11 @@ def rounded_sum(x: torch.Tensor, dims) -> torch.Tensor:
 
 class _FlashAttention(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, q, k, v, causal, window, softcap):
+    def forward(ctx, q, k, v, causal, window, softcap, q_offset):
         ctx.save_for_backward(q, k, v)
-        ctx.mask = (causal, window, softcap)
-        return _fa.flash_attention(q, k, v, causal, window, softcap)
+        ctx.mask = (causal, window, softcap, q_offset)
+        return _fa.flash_attention(q, k, v, causal, window, softcap,
+                                   q_offset)
 
     @staticmethod
     def backward(ctx, g):
@@ -95,15 +96,17 @@ class _FlashAttention(torch.autograd.Function):
         if grp > 1:
             dk = rounded_sum(dk.reshape(b, hk, grp, s, d), 2)
             dv = rounded_sum(dv.reshape(b, hk, grp, s, d), 2)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention_diff(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          causal: bool = True, window: Optional[int] = None,
-                         softcap: Optional[float] = None) -> torch.Tensor:
-    """Differentiable flash attention over (B, H, S, D) queries and
-    (B, Hk, S, D) keys/values (``kernels.flash_attention``)."""
-    return _FlashAttention.apply(q, k, v, causal, window, softcap)
+                         softcap: Optional[float] = None,
+                         q_offset: int = 0) -> torch.Tensor:
+    """Differentiable flash attention over (B, H, Sq, D) queries and
+    (B, Hk, S, D) keys/values, query row r at row ``q_offset + r`` of the
+    sequence (``kernels.flash_attention``)."""
+    return _FlashAttention.apply(q, k, v, causal, window, softcap, q_offset)
 
 
 class _SSDChunk(torch.autograd.Function):

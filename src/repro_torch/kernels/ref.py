@@ -13,16 +13,20 @@ NEG_INF = -1e30
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           causal: bool = True, window: Optional[int] = None,
-                          softcap: Optional[float] = None) -> torch.Tensor:
-    """Attention over (B, H, S, D) queries: ``repro.kernels.ref.
+                          softcap: Optional[float] = None,
+                          q_offset: int = 0) -> torch.Tensor:
+    """Attention over (B, H, Sq, D) queries: ``repro.kernels.ref.
     flash_attention_ref`` in f32 (scores scaled by ``D ** -0.5``, softcap
     before the masks, masked scores -1e30), output in q's dtype.
 
-    Two extensions, both matching the kernel: ``k``/``v`` may carry Hk heads
-    with H % Hk == 0, query head h reading kv head ``h // (H // Hk)`` (the
-    model's GQA order); and a row whose every column is masked (only a
-    window <= 0 does that) comes out 0, where the reference's softmax would
-    average v uniformly."""
+    Three extensions, all matching the kernel: ``k``/``v`` may carry Hk
+    heads with H % Hk == 0, query head h reading kv head ``h // (H // Hk)``
+    (the model's GQA order); query row r is row ``q_offset + r`` of the
+    (B, Hk, S, D) keys' sequence in the causal and window masks (a rank's
+    block of rows under context parallelism; Sq == S and 0 for the whole
+    sequence); and a row whose every column is masked (only a window <= 0
+    does that) comes out 0, where the reference's softmax would average v
+    uniformly."""
     b, h, s, d = q.shape
     if k.shape[1] != h:
         k = k.repeat_interleave(h // k.shape[1], dim=1)
@@ -30,9 +34,9 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     scores = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float()) * d ** -0.5
     if softcap is not None:
         scores = torch.tanh(scores / softcap) * softcap
-    rows = torch.arange(s, device=q.device)[:, None]
-    cols = torch.arange(s, device=q.device)[None, :]
-    mask = torch.ones((s, s), dtype=torch.bool, device=q.device)
+    rows = q_offset + torch.arange(s, device=q.device)[:, None]
+    cols = torch.arange(k.shape[2], device=q.device)[None, :]
+    mask = torch.ones((s, k.shape[2]), dtype=torch.bool, device=q.device)
     if causal:
         mask = mask & (cols <= rows)
     if window is not None:

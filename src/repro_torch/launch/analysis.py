@@ -10,7 +10,24 @@ The JAX package reads these from the compiled SPMD program (XLA's
 collectives, per device).  The port has no compiler between the step and
 the card: ``extract_roofline`` takes the counts of one eager run of the
 step (``launch.loopcost.step_costs``) and the specs of its inputs
-(``launch.steps.TrainArtifacts``):
+(``launch.steps.TrainArtifacts``).
+
+Where the step runs sharded (``sharded=True``: the dense family's train
+and prefill steps on a production mesh, counted as one rank's own run on
+``meta``, ``launch.mesh.rank_view``) the count is per device already:
+
+* ``flops_per_device`` and ``bytes_per_device`` are that rank's, the work
+  it repeats on replicated operands included, as XLA's per-device count
+  has it;
+* ``collective_bytes_per_device`` is the bytes its collectives report by
+  kind (each its result's bytes, the JAX package's convention), and
+  ``t_collective`` those bytes over the NVLink rate;
+* ``peak_memory_per_device`` is its own peak: its blocks of the
+  arguments and the most its run held above them.
+
+Every other step (the other families, the decode shapes, the paper-mode
+round; records with ``"sharded": false``) is counted unsharded and split
+evenly:
 
 * ``flops_per_device`` and ``bytes_per_device`` split the counted flops and
   bytes evenly over the mesh's devices.  XLA's per-device count includes
@@ -22,10 +39,10 @@ step (``launch.loopcost.step_costs``) and the specs of its inputs
   devices its spec splits it across; plus the step's activation peak (the
   counter's peak above its arguments) split over the devices of the batch
   axes;
-* ``t_collective`` is None on a mesh of more than one device: no step runs
-  sharded there yet (the sharded execution item of the roadmap), so there
-  is no collective to count.  On the host mesh it is the counted
-  collectives' bytes (none) over the NVLink rate.
+* ``t_collective`` is None on a mesh of more than one device: the step
+  runs no collective there (items 9(b) and 9(c) of the roadmap).  On the
+  host mesh it is the counted collectives' bytes (none) over the NVLink
+  rate.
 
 The hardware constants are the H100's (``launch.mesh``); no TPU number is
 used.
@@ -54,6 +71,7 @@ class Roofline:
     collective_bytes_by_kind: Dict[str, int]
     peak_memory_per_device: Optional[float]
     model_flops: float                      # 6*N*D (or 6*N_active*D for MoE)
+    sharded: bool = False                   # counted as one rank's own run
 
     @property
     def t_compute(self) -> float:
@@ -96,6 +114,7 @@ class Roofline:
             "t_compute": self.t_compute, "t_memory": self.t_memory,
             "t_collective": self.t_collective, "bottleneck": self.bottleneck,
             "useful_flops_ratio": self.useful_flops_ratio,
+            "sharded": self.sharded,
         }
 
 
@@ -136,11 +155,23 @@ def resident_bytes_per_device(args, specs, mesh: Mesh) -> int:
 
 
 def extract_roofline(cfg, shape, mesh_name: str, mesh: Mesh, mode: str,
-                     costs, art) -> Roofline:
+                     costs, art, sharded: bool = False) -> Roofline:
     """The roofline of ``art``'s step (``launch.steps.TrainArtifacts``) on
     ``mesh`` from the counts of one run of it (``launch.loopcost.
-    step_costs``); see the module docstring."""
+    step_costs``): of one rank's own run where ``sharded``, else of the
+    unsharded step; see the module docstring."""
     n = mesh.n_devices
+    if sharded:
+        return Roofline(
+            arch=cfg.arch_id, shape=shape.name, mesh=mesh_name, mode=mode,
+            n_devices=n, flops_per_device=float(costs.dot_flops),
+            bytes_per_device=float(costs.io_bytes),
+            collective_bytes_per_device=float(sum(
+                costs.collectives.values())),
+            collectives=dict(costs.collective_calls),
+            collective_bytes_by_kind=dict(costs.collectives),
+            peak_memory_per_device=float(costs.peak_bytes),
+            model_flops=model_flops_estimate(cfg, shape), sharded=True)
     batch = 1 if mode == "prefill" else 2       # the batch's (or token's) slot
     _, batch_spec = tree_paths(art.in_shardings[batch])[0]
     peak = (resident_bytes_per_device(art.abstract_args, art.in_shardings,

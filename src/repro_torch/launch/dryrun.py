@@ -18,9 +18,16 @@ without ``memory_analysis``, ``lower_s``, ``compile_s`` and
 (the counted run's wall time), ``mesh_devices``, the keywords of
 ``run_one`` (``attn_impl``, ``rule_overrides``, ``tag``, ``paper_ctx``)
 and the effective ``rules``, so a ladder's records say what each rung
-changed.  The step is the same
-unsharded program on every mesh, so one process counts it once per
-(arch, shape) and reuses the count across meshes.
+changed, and ``sharded``.
+
+The dense family's train and prefill steps run sharded on the production
+meshes: each is counted as rank 0's own run on a ``meta`` view of the mesh
+(``launch.mesh.rank_view``: its blocks of the arguments, its collectives
+shaped and counted, no process group), so its flops, bytes, peak and
+collective bytes are per device (``"sharded": true``; the count is cached
+per mesh and rules).  Every other step (the other families, the decode
+shapes, the paper-mode round) is the same unsharded program on every mesh,
+counted once per (arch, shape) and split evenly (``"sharded": false``).
 
 Usage:
     PYTHONPATH=src python -m repro_torch.launch.dryrun --arch gemma2-2b --shape train_4k
@@ -42,9 +49,11 @@ from repro_torch.configs.base import INPUT_SHAPES
 from repro_torch.launch import analysis as A
 from repro_torch.launch import loopcost as LC
 from repro_torch.launch import steps as S
-from repro_torch.launch.mesh import make_host_mesh, make_production_mesh
+from repro_torch.launch.mesh import (make_host_mesh, make_production_mesh,
+                                     rank_view)
 from repro_torch.models import registry as R
 from repro_torch.optim import get_optimizer
+from repro_torch.sharding import rules as SR
 
 OUT_DIR = pathlib.Path(__file__).resolve().parents[3] / "experiments" \
     / "dryrun_torch"
@@ -77,14 +86,18 @@ def run_one(arch: str, shape_name: str, mesh_name: str,
     ``attn_impl`` replaces the config's (``dataclasses.replace``); ``tag`` adds
     ``_{tag}`` to the file name (paper mode writes ``_dystop`` when no tag
     is given); ``paper_ctx`` turns the sharding-rules context of the
-    paper-mode round on or off.  Each is written into the record.  Some
-    cannot change a count here, and are accepted all the same so the
+    paper-mode round on or off.  Each is written into the record.  On a
+    sharded record (the dense family's train and prefill on a production
+    mesh) ``rule_overrides`` move the count itself: h1's ``q_seq`` rung
+    runs context-parallel attention, gathering the weights and the output
+    rows, where its predecessor ran it replicated.  On the others some
+    keywords cannot change a count, and are accepted all the same so the
     reference's ladders run unchanged: the count is of one unsharded step,
     so ``rule_overrides`` moves only the resident bytes a device holds;
-    ``paper_ctx`` moves nothing, since ``constrain`` is the identity on one
-    device and there is no collective term; ``attn_impl="chunked"`` moves
-    only a prefix-LM's count, since every other self-attention runs the
-    flash kernel whatever it says."""
+    ``paper_ctx`` moves nothing, since the pods round is counted unsharded
+    and has no collective term; ``attn_impl="chunked"`` moves only a
+    prefix-LM's count, since every other self-attention runs the flash
+    kernel whatever it says."""
     cfg = R.get_config(arch)
     if attn_impl:
         cfg = dataclasses.replace(cfg, attn_impl=attn_impl)
@@ -99,6 +112,11 @@ def run_one(arch: str, shape_name: str, mesh_name: str,
                                "no labels"}
         mesh_name = "multi"            # the DFL plane needs the pod axis
     mesh = _mesh(mesh_name)
+    sharded = (not paper_mode and mesh.n_devices > 1
+               and shape.mode in ("train", "prefill")
+               and cfg.family in SR.SHARDED_FAMILIES)
+    if sharded:
+        mesh = rank_view(mesh)
     opt = get_optimizer(optimizer_name)
     if paper_mode:
         art = S.build_dystop_artifacts(cfg, shape, mesh, opt, remat=True,
@@ -119,12 +137,16 @@ def run_one(arch: str, shape_name: str, mesh_name: str,
         mode = "serve"
 
     key = (cfg, shape_name, mode, optimizer_name, local_steps)
+    if sharded:
+        key += (mesh_name, tuple(sorted(art.rules.items())))
     if key not in _COSTS:
         t0 = time.perf_counter()
-        costs = LC.step_costs(art.step_fn, *art.abstract_args)
+        costs = LC.step_costs(art.step_fn, *(art.local_args if sharded
+                                             else art.abstract_args))
         _COSTS[key] = (costs, time.perf_counter() - t0)
     costs, trace_s = _COSTS[key]
-    roof = A.extract_roofline(cfg, shape, mesh_name, mesh, mode, costs, art)
+    roof = A.extract_roofline(cfg, shape, mesh_name, mesh, mode, costs, art,
+                              sharded=sharded)
     rec = roof.to_dict()
     rec["trace_s"] = trace_s
     rec["mesh_devices"] = mesh.n_devices

@@ -25,8 +25,12 @@ counterpart: a loop's every trip is counted because every trip runs.
   outputs still referenced (each storage once, freed when its last tensor
   goes);
 * ``collectives`` and ``collective_calls``: bytes and calls by kind that
-  ``sharding.rules.FleetSharding``'s collectives report (none on one
-  process);
+  ``sharding.rules``' collectives report (none on one process): each
+  counts its result's bytes, as the JAX package's ``collective_bytes``
+  reads the post-SPMD HLO (an all-gather its gathered output, a
+  reduce-scatter its block, an all-reduce its operand); their transport
+  (host memory on gloo, the card over NCCL, nothing on ``meta``) is not
+  counted as work, so a step counts the same on ``meta`` and on ranks;
 * ``kernel_calls``: calls per kernel.
 
 A kernel's call is counted by its own formula, never by the ops inside it:
@@ -127,23 +131,28 @@ def sgd_cost(spec, active: torch.Tensor, k: int, steps: int, batch: int,
     return Cost(nbytes, flops)
 
 
-def attention_pairs(s: int, causal: bool, window: Optional[int]) -> int:
-    """Unmasked (query row, key column) pairs of an S x S attention mask:
-    causal keeps columns <= the row, a window keeps rows - columns <
-    window."""
-    rows = np.arange(s, dtype=np.int64)
-    hi = rows if causal else np.full(s, s - 1, dtype=np.int64)
+def attention_pairs(s: int, causal: bool, window: Optional[int],
+                    sk: Optional[int] = None, q_offset: int = 0) -> int:
+    """Unmasked (query row, key column) pairs of an S x Sk attention mask
+    (Sk = S by default) whose query rows are rows ``q_offset`` onward of
+    the sequence: causal keeps columns <= the row, a window keeps rows -
+    columns < window."""
+    sk = s if sk is None else sk
+    rows = q_offset + np.arange(s, dtype=np.int64)
+    hi = np.minimum(rows, sk - 1) if causal else np.full(s, sk - 1,
+                                                         dtype=np.int64)
     lo = 0 if window is None else np.maximum(0, rows - window + 1)
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
 def flash_cost(q: torch.Tensor, k: torch.Tensor, causal: bool,
-               window: Optional[int]) -> Cost:
+               window: Optional[int], q_offset: int = 0) -> Cost:
     """``flash_attention``: bytes are q, k, v (as passed, kv heads once)
-    read and o written once; flops 4 D per unmasked (row, column) pair,
-    over the peak rate for the inputs' type."""
+    read and o written once; flops 4 D per unmasked (row, column) pair
+    (query rows ``q_offset`` onward of the sequence), over the peak rate
+    for the inputs' type."""
     b, h, s, d = q.shape
-    pairs = attention_pairs(s, causal, window)
+    pairs = attention_pairs(s, causal, window, k.shape[2], q_offset)
     nbytes = (2 * q.numel() + 2 * k.numel()) * q.element_size()
     rate = PEAK_FLOPS_BF16 if q.dtype == torch.bfloat16 else PEAK_FLOPS_F32
     return Cost(nbytes, 4.0 * d * pairs * b * h, rate)
@@ -179,6 +188,7 @@ def _bmm(a, b, *_):
 
 _DOT_FLOPS: Dict[object, Callable] = {
     aten.mm.default: _mm,
+    aten.mm.dtype: _mm,
     aten.addmm.default: lambda bias, a, b, *_: _mm(a, b),
     aten.bmm.default: _bmm,
     aten.baddbmm.default: lambda inp, a, b, *_: _bmm(a, b),
@@ -267,7 +277,9 @@ class CostCounter(TorchDispatchMode):
 
 
 @contextlib.contextmanager
-def _paused():
+def paused():
+    """Count nothing of what runs inside (a kernel entry's or a
+    collective's own ops: each is counted by its formula instead)."""
     for c in _ACTIVE:
         c._paused += 1
     try:
@@ -287,7 +299,7 @@ def counted(name: str, cost: Callable[..., Cost]) -> Callable:
         def run(*args, **kwargs):
             if not _ACTIVE:
                 return entry(*args, **kwargs)
-            with _paused():
+            with paused():
                 out = entry(*args, **kwargs)
             c = cost(*args, **kwargs)
             for counter in _ACTIVE:
@@ -300,12 +312,15 @@ def counted(name: str, cost: Callable[..., Cost]) -> Callable:
     return wrap
 
 
-def collective(kind: str, nbytes: int) -> None:
+def collective(kind: str, nbytes: int, out=None) -> None:
     """Report ``nbytes`` of a ``kind`` collective to the active counters
-    (``sharding.rules.FleetSharding`` calls it)."""
+    (``sharding.rules``' collectives and ``FleetSharding``'s call it),
+    and its output ``out``, where given, as a new storage."""
     for c in _ACTIVE:
         c.collectives[kind] += int(nbytes)
         c.collective_calls[kind] += 1
+        if out is not None:
+            c.track(out)
 
 
 def step_costs(fn: Callable, *args) -> CostCounter:

@@ -8,9 +8,17 @@ sizes, and the device of a mesh of one.  That is all the logical-axis
 rules read (``sharding.rules.logical_spec``, as the JAX package's
 ``abstract_mesh`` says), so a 256- or 512-device mesh needs no process
 group and no card: the dry-run (``launch/dryrun.py``) builds its specs on
-one.  No step runs sharded over it yet (the sharded execution item of the
-roadmap); the host mesh's one device, where every spec is a no-op, is
-where steps run.
+one.
+
+A step runs sharded over a mesh of ranks (explicit SPMD, one process per
+device): ``make_rank_mesh`` joins the ranks and gives this rank's
+``Mesh`` with its coordinate on each axis (``coords``, rank r at the
+row-major place of r in the grid, as JAX lays a mesh's devices out) and
+one process group per axis (``groups``: every row, column and pod line
+of the grid), over which ``sharding.rules``' collectives run.
+``rank_view`` is the same place with no process group, on ``meta``: the
+dry-run plays one device of a production mesh with it, and its
+collectives only shape their outputs and count.
 
 The JAX package's fleet mesh (``repro.launch.mesh.make_fleet_mesh``) is a
 1-D device mesh under one controller; GSPMD and ``shard_map`` add the
@@ -34,6 +42,7 @@ from __future__ import annotations
 
 import dataclasses
 import datetime
+import itertools
 import math
 import os
 import pickle
@@ -62,10 +71,17 @@ NVLINK_BW = 450e9               # bytes/s each way per card (NVLink 4)
 class Mesh:
     """A device mesh as the logical-axis rules see it: ``axis_names`` with
     their ``sizes`` (major to minor), and the ``device`` of a mesh of one
-    (None for a description that no step runs on)."""
+    (None for a description that no step runs on).  One rank's place on
+    it adds ``coords`` (its index on each axis), ``groups`` (axis name ->
+    the process group of the ranks that differ from it on that axis
+    alone; None on a ``rank_view``) and the collective ``backend``."""
     axis_names: Tuple[str, ...]
     sizes: Tuple[int, ...]
     device: Optional[torch.device] = None
+    coords: Optional[Tuple[int, ...]] = None
+    groups: Optional[Dict[str, Any]] = dataclasses.field(
+        default=None, compare=False, repr=False)
+    backend: Optional[str] = None
 
     @property
     def shape(self) -> Dict[str, int]:
@@ -75,6 +91,75 @@ class Mesh:
     @property
     def n_devices(self) -> int:
         return math.prod(self.sizes)
+
+    @property
+    def ranked(self) -> bool:
+        """Whether this is one rank's place on a mesh of more than one
+        device (a step run under it is sharded)."""
+        return self.coords is not None and self.n_devices > 1
+
+    def size(self, axis: str) -> int:
+        """The axis' size (1 for an axis the mesh does not have)."""
+        return self.shape.get(axis, 1)
+
+    def coord(self, axis: str) -> int:
+        """This rank's index on the axis (0 for an axis it does not
+        have)."""
+        if axis not in self.axis_names:
+            return 0
+        return self.coords[self.axis_names.index(axis)]
+
+
+def rank_coords(rank: int, sizes: Tuple[int, ...]) -> Tuple[int, ...]:
+    """Rank r's coordinate on a grid of ``sizes`` (row-major: the last
+    axis varies fastest)."""
+    out = []
+    for n in reversed(sizes):
+        out.append(rank % n)
+        rank //= n
+    return tuple(reversed(out))
+
+
+def _rank_of(coords: Tuple[int, ...], sizes: Tuple[int, ...]) -> int:
+    r = 0
+    for c, n in zip(coords, sizes):
+        r = r * n + c
+    return r
+
+
+def rank_view(mesh: Mesh, rank: int = 0) -> Mesh:
+    """Rank ``rank``'s place on ``mesh`` with no process group, on the
+    ``meta`` device: what the dry-run counts one device of a production
+    mesh with."""
+    return Mesh(mesh.axis_names, mesh.sizes, torch.device("meta"),
+                rank_coords(rank, mesh.sizes))
+
+
+def make_rank_mesh(axis_names: Tuple[str, ...], sizes: Tuple[int, ...],
+                   device, *, rank: int | None = None,
+                   init_file: str | None = None) -> Mesh:
+    """Join a mesh of ``prod(sizes)`` ranks, one per device, and return
+    this rank's place on it.  The process group is the fleet mesh's
+    (``make_fleet_mesh``: an existing group of that size, or ``rank`` and
+    ``init_file``; gloo or NCCL by ``fleet_backend``'s rule); every rank
+    then creates one group per line of the grid along each axis of more
+    than one device, in the same order, and keeps its own."""
+    axis_names, sizes = tuple(axis_names), tuple(int(n) for n in sizes)
+    fm = make_fleet_mesh(math.prod(sizes), device, rank=rank,
+                         init_file=init_file)
+    coords = rank_coords(fm.rank, sizes)
+    groups: Dict[str, Any] = {}
+    for a, name in enumerate(axis_names):
+        if sizes[a] == 1:
+            continue
+        others = [range(n) for i, n in enumerate(sizes) if i != a]
+        for rest in itertools.product(*others):
+            line = [_rank_of(rest[:a] + (j,) + rest[a:], sizes)
+                    for j in range(sizes[a])]
+            group = dist.new_group(line)
+            if fm.rank in line:
+                groups[name] = group
+    return Mesh(axis_names, sizes, fm.device, coords, groups, fm.backend)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:

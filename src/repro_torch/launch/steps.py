@@ -11,12 +11,23 @@ and dtypes, nothing allocated) and the ``sharding.rules.PartitionSpec`` of
 every input and output leaf on a mesh (``launch.mesh``), from the logical
 axes of the model zoo.  The dry-run (``launch/dryrun.py``) runs the step
 once on the ``meta`` arguments to count its work; a trainer materialises
-them on the card.  No step runs sharded over the specs yet (the sharded
-execution item of the roadmap): on the host mesh of one device every spec
-is a no-op.
+them on the card.  On the host mesh of one device every spec is a no-op.
+
+On one rank's place on a mesh of ranks (``launch.mesh.make_rank_mesh``, or
+``rank_view`` on ``meta``) the dense family's train and prefill steps run
+sharded (explicit SPMD): each rank holds its blocks of every leaf by the
+artifacts' own specs (``TrainArtifacts.local_args``; ``registry.
+init_params(mesh=)``, ``registry.local_params``) and the model code's
+collectives (``sharding.rules``) stand in for GSPMD's.  A leaf's gradient
+is summed over every batch axis that does not split it (the batch axes
+that do are the FSDP gather's reduce-scatter), ``grad_norm`` counts each
+element once, the metrics are replicated, and the prefill's logits are the
+rank's block.  Any other family, or adafactor, on a mesh of ranks raises
+``NotImplementedError`` (item 9(b) of the roadmap).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, Optional, Tuple
 
@@ -34,8 +45,98 @@ from repro_torch.tree import (tree_from_paths, tree_map, tree_map_with_path,
 METRICS = ("ce", "moe_aux", "loss", "grad_norm")
 
 
+NOT_PORTED = ("sharded execution of the {family} family is not ported "
+              "(item 9(b) of the roadmap: the moe, ssm, hybrid, vlm and "
+              "enc-dec families); only {families} run on a mesh of ranks")
+
+
+def _ranked(cfg: ModelConfig, mesh: Optional[Mesh]) -> bool:
+    """Whether a step of ``cfg`` runs on one rank's place on a mesh of
+    ranks.  Raises ``NotImplementedError`` for a family whose sharded step
+    is not ported: the one refusal, met when a train or prefill step is
+    built."""
+    if mesh is None or not mesh.ranked:
+        return False
+    if cfg.family not in SR.SHARDED_FAMILIES:
+        raise NotImplementedError(NOT_PORTED.format(
+            family=cfg.family, families=", ".join(SR.SHARDED_FAMILIES)))
+    return True
+
+
+def _sharded(mesh: Optional[Mesh], rules: Optional[SR.Rules]):
+    """The sharding context a step runs under: on a mesh of ranks the
+    mesh and rules, else none."""
+    if mesh is None or not mesh.ranked:
+        return contextlib.nullcontext()
+    return SR.use_sharding_rules(mesh, rules)
+
+
+def _param_leaf_specs(cfg: ModelConfig, mesh: Mesh,
+                      rules: Optional[SR.Rules]) -> list:
+    params, axes = R.abstract_params(cfg)
+    return [sp for _, sp in tree_paths(SR.tree_shardings(
+        axes, params, mesh, _rules(rules)))]
+
+
+def _sum_of_squares(grads, specs, mesh: Optional[Mesh]) -> torch.Tensor:
+    """The f32 sum of squares of every gradient element, each counted
+    once: on a mesh of ranks a leaf's block counts on the rank at index 0
+    of every axis that does not split the leaf, and the sums are psummed
+    over the mesh."""
+    terms = []
+    for i, g in enumerate(grads):
+        if specs is not None:
+            split = {a for e in specs[i] for a in SR.axis_names(e)}
+            if any(mesh.coord(a) != 0 for a in mesh.axis_names
+                   if a not in split):
+                continue
+        terms.append(torch.sum(torch.square(g.to(torch.float32))))
+    total = sum(terms) if terms else torch.zeros(
+        (), dtype=torch.float32, device=grads[0].device)
+    return total if specs is None else SR.reduce_plain(total,
+                                                       mesh.axis_names)
+
+
+def make_grad_step(cfg: ModelConfig, remat: bool = True,
+                   mesh: Optional[Mesh] = None,
+                   rules: Optional[SR.Rules] = None) -> Callable:
+    """``grad_step(params, batch) -> (loss, metrics, grads, grad_norm)``:
+    ``compute_loss`` (``metrics``: ``ce``, ``moe_aux``), its gradient as a
+    list of leaves in ``tree_paths(params)`` order, and their f32 global
+    norm; ``make_train_step``'s first half.  On one rank's place on a mesh
+    of ranks each gradient is this rank's block of the whole step's (see
+    the module docstring)."""
+    ranked = _ranked(cfg, mesh)
+    specs = batch_ax = None
+    if ranked:
+        specs = _param_leaf_specs(cfg, mesh, rules)
+        batch_ax = SR.batch_axes(mesh, _rules(rules))
+
+    def grad_step(params, batch):
+        leaves = [leaf.detach().requires_grad_()
+                  for _, leaf in tree_paths(params)]
+        p = tree_from_paths(zip([q for q, _ in tree_paths(params)], leaves))
+        with _sharded(mesh, rules):
+            with torch.enable_grad():
+                loss, metrics = R.compute_loss(cfg, p, batch, remat=remat)
+                grads = torch.autograd.grad(loss, leaves)
+            with torch.no_grad():
+                if ranked:
+                    grads = [SR.reduce_plain(g, tuple(
+                        a for a in batch_ax if a not in
+                        {n for e in sp for n in SR.axis_names(e)}))
+                        for g, sp in zip(grads, specs)]
+                norm = torch.sqrt(_sum_of_squares(
+                    grads, specs, mesh if ranked else None))
+        return (loss.detach(), {k: v.detach() for k, v in metrics.items()},
+                list(grads), norm)
+
+    return grad_step
+
+
 def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
-                    remat: bool = True) -> Callable:
+                    remat: bool = True, mesh: Optional[Mesh] = None,
+                    rules: Optional[SR.Rules] = None) -> Callable:
     """``train_step(params, opt_state, batch) -> (new_params, new_state,
     metrics)``: one optimizer step on ``compute_loss``'s gradient.
     ``metrics`` holds ``ce``, ``moe_aux``, ``loss`` and ``grad_norm`` (the
@@ -45,22 +146,23 @@ def make_train_step(cfg: ModelConfig, optimizer: Optimizer,
     ``remat`` (the default, as in the JAX package) recomputes each layer
     group's activations in the backward pass instead of keeping them
     (``transformer.remat_call``): less memory, the kernels of the group
-    launched twice, and the same loss and gradients to the bit."""
+    launched twice, and the same loss and gradients to the bit.
+
+    With one rank's place on a mesh of ranks (``mesh``, and the
+    logical-axis ``rules``, the defaults unless given) the step takes and
+    returns this rank's blocks of params, state and batch, sharded as the
+    module docstring says; its metrics are the whole step's."""
+    grad_step = make_grad_step(cfg, remat, mesh, rules)
+
     def train_step(params, opt_state, batch):
+        loss, metrics, grads, norm = grad_step(params, batch)
         paths = [path for path, _ in tree_paths(params)]
-        p = tree_map(lambda leaf: leaf.detach().requires_grad_(), params)
-        leaves = [leaf for _, leaf in tree_paths(p)]
-        with torch.enable_grad():
-            loss, metrics = R.compute_loss(cfg, p, batch, remat=remat)
-            grads = torch.autograd.grad(loss, leaves)
-        with torch.no_grad():
+        with _sharded(mesh, rules), torch.no_grad():
             new_params, new_state = optimizer.update(
                 tree_from_paths(zip(paths, grads)), opt_state,
-                tree_map(torch.Tensor.detach, p))
-            metrics = {k: v.detach() for k, v in metrics.items()}
-            metrics["loss"] = loss.detach()
-            metrics["grad_norm"] = torch.sqrt(sum(
-                torch.sum(torch.square(g.to(torch.float32))) for g in grads))
+                tree_map(torch.Tensor.detach, params))
+        metrics["loss"] = loss
+        metrics["grad_norm"] = norm
         return new_params, new_state, metrics
 
     return train_step
@@ -144,11 +246,17 @@ def make_dystop_round_step(cfg: ModelConfig, optimizer: Optimizer,
     return round_step
 
 
-def make_prefill_step(cfg: ModelConfig) -> Callable:
-    """``prefill_step(params, batch) -> logits`` (``forward_logits``)."""
+def make_prefill_step(cfg: ModelConfig, mesh: Optional[Mesh] = None,
+                      rules: Optional[SR.Rules] = None) -> Callable:
+    """``prefill_step(params, batch) -> logits`` (``forward_logits``); on
+    one rank's place on a mesh of ranks (``make_train_step``) the rank's
+    blocks in and its block of the logits out."""
+    _ranked(cfg, mesh)
+
     @torch.no_grad()
     def prefill_step(params, batch):
-        return R.forward_logits(cfg, params, batch)
+        with _sharded(mesh, rules):
+            return R.forward_logits(cfg, params, batch)
 
     return prefill_step
 
@@ -212,12 +320,31 @@ def cache_logical_axes(cfg: ModelConfig, cache_shapes) -> Any:
 class TrainArtifacts:
     """A step function with its arguments as ``meta`` tensors, the specs
     of its inputs and outputs (trees of ``PartitionSpec``) and the
-    logical-axis rules those specs were made with."""
+    logical-axis rules those specs were made with; on one rank's place on
+    a mesh of ranks also this rank's arguments (``local_args``: its blocks
+    of ``abstract_args`` by ``in_shardings``, on ``meta``), which the step
+    then takes."""
     step_fn: Any
     abstract_args: Tuple[Any, ...]
     in_shardings: Tuple[Any, ...]
     out_shardings: Any
     rules: SR.Rules
+    local_args: Optional[Tuple[Any, ...]] = None
+
+
+def _local_args(args, specs, mesh: Mesh) -> Tuple[Any, ...]:
+    """This rank's blocks of the ``meta`` arguments."""
+    return tuple(SR.local_tree(a, s, mesh) for a, s in zip(args, specs))
+
+
+def _check_batch_split(batch_sh, mesh: Mesh, rules: SR.Rules) -> None:
+    """Raise unless every batch input splits over all the batch axes: a
+    replicated batch would count each row once per replica in the loss."""
+    want = set(SR.batch_axes(mesh, rules))
+    for name, spec in batch_sh.items():
+        if not want <= set(SR.axis_names(spec[0])):
+            raise ValueError(f"{name}: the global batch does not split over "
+                             f"the batch axes {sorted(want)} (spec {spec})")
 
 
 def _metrics_specs():
@@ -239,12 +366,17 @@ def build_train_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
                                  mesh, rules)
     batch_sh = shardings_from_axes(R.batch_logical_axes(cfg, shape), batch,
                                    mesh, rules)
+    args, in_sh = (params, opt_state, batch), (params_sh, opt_sh, batch_sh)
+    local = None
+    if mesh.ranked:
+        _check_batch_split(batch_sh, mesh, rules)
+        local = _local_args(args, in_sh, mesh)
     return TrainArtifacts(
-        step_fn=make_train_step(cfg, optimizer, remat=remat),
-        abstract_args=(params, opt_state, batch),
-        in_shardings=(params_sh, opt_sh, batch_sh),
+        step_fn=make_train_step(cfg, optimizer, remat=remat, mesh=mesh,
+                                rules=rules),
+        abstract_args=args, in_shardings=in_sh,
         out_shardings=(params_sh, opt_sh, _metrics_specs()),
-        rules=rules)
+        rules=rules, local_args=local)
 
 
 def build_dystop_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
@@ -307,14 +439,18 @@ def build_prefill_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,
     logits_sh = SR.logical_spec(("data", None, "vocab_act"),
                                 (shape.global_batch, shape.seq_len, 1 << 30),
                                 mesh, rules)
+    args = (params, batch)
+    in_sh = (shardings_from_axes(param_axes, params, mesh, rules),
+             shardings_from_axes(R.batch_logical_axes(cfg, shape), batch,
+                                 mesh, rules))
+    local = None
+    if mesh.ranked:
+        _check_batch_split(in_sh[1], mesh, rules)
+        local = _local_args(args, in_sh, mesh)
     return TrainArtifacts(
-        step_fn=make_prefill_step(cfg),
-        abstract_args=(params, batch),
-        in_shardings=(shardings_from_axes(param_axes, params, mesh, rules),
-                      shardings_from_axes(R.batch_logical_axes(cfg, shape),
-                                          batch, mesh, rules)),
-        out_shardings=logits_sh,
-        rules=rules)
+        step_fn=make_prefill_step(cfg, mesh=mesh, rules=rules),
+        abstract_args=args, in_shardings=in_sh, out_shardings=logits_sh,
+        rules=rules, local_args=local)
 
 
 def build_serve_artifacts(cfg: ModelConfig, shape: ShapeSpec, mesh: Mesh,

@@ -28,9 +28,27 @@ version on the CPU), causal or not (the enc-dec encoder's), whatever
 a bidirectional prefix (the prefix-LM) are einsums, as in the JAX package,
 which keeps all three off its Pallas path too; the prefix-LM with
 ``attn_impl="chunked"`` runs ``chunked_attention``, the reference's online
-softmax over kv blocks, in plain PyTorch.  The sharding hints of the JAX package (``constrain``) are the
-identity on one card and are not threaded through the model code (the
-sharded execution item of the roadmap).
+softmax over kv blocks, in plain PyTorch.
+
+The JAX package's sharding hints (``constrain``) are threaded through the
+dense family's train/prefill path and are the identity on one device.  On a
+mesh of ranks (``sharding.rules.rank_mesh``) each rank holds its blocks of
+the leaves, gathered over the batch axes by the caller (FSDP,
+``transformer.forward``), so only the ``"model"`` split is left here:
+attention is head-parallel where the heads split over ``"model"``,
+context-parallel (this rank's query rows against the whole sequence's k and
+v, ``flash_attention``'s ``q_offset``) under the ``q_seq: ("model",)``
+override, and replicated otherwise; the MLP is column- then row-parallel;
+the LM head is vocab-parallel, and ``softmax_cross_entropy`` takes the max,
+the sum of exponentials and the label's logit over the vocab shards and the
+mean over the batch axes by collectives, never gathering the logits.  A
+tensor every rank holds whole enters a tensor-parallel region through
+``psum_grad`` (its gradient summed over the ranks), and a row-parallel
+product leaves through ``row_parallel``: its partial sums kept in f32,
+psummed, and rounded to bf16 once, as the unsharded product rounds them
+(a bf16 psum of bf16 partials puts ~7.5 % of a block's outputs more than
+one ulp from the reference's, the f32 psum none more than the unsharded
+product does: ``python tests/_torch_blocks.py --row-parallel``).
 """
 from __future__ import annotations
 
@@ -41,9 +59,11 @@ import threading
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops as K
+from repro_torch.sharding import rules as SR
 
 Params = Dict[str, Any]
 
@@ -519,6 +539,11 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
     clamps), and attention spans the cache with rows past the step masked."""
     b, s, _ = x.shape
     dt = p["wq"].dtype
+    if kv_x is None and cache is None and not spec.prefix_len:
+        if SR.rank_mesh() is not None:
+            return _sharded_attention(cfg, p, x, spec, positions), None
+        return _attention_core(cfg, x, p["wq"], p["wk"], p["wv"], p["wo"],
+                               spec, positions), None
     if kv_x is not None:
         (xq,), (xk, xv) = fan(x, 1, dt), fan(kv_x, 2, dt)
         return cached_attention(cfg, p["wo"], _project(xq, p["wq"]),
@@ -539,21 +564,146 @@ def multihead_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
         y = cached_attention(cfg, p["wo"], q, cache["k"], cache["v"],
                              mask[:, None, :, None, :], spec.softcap)
         return y, {"k": cache["k"], "v": cache["v"]}
-    if spec.prefix_len and cfg.attn_impl == "chunked":
+    if cfg.attn_impl == "chunked":              # the prefix-LM
         return chunked_attention(cfg, p["wo"], q, k, v, spec), None
-    if spec.prefix_len:
-        # batch-free (Sq, Sk) mask, as the JAX package builds it
-        iota = torch.arange(s, dtype=torch.int32, device=x.device)
-        mask = attn_mask(iota, iota, spec)[None, None, :, None, :]
-        return cached_attention(cfg, p["wo"], q, k, v, mask,
-                                spec.softcap), None
+    # batch-free (Sq, Sk) mask, as the JAX package builds it
+    iota = torch.arange(s, dtype=torch.int32, device=x.device)
+    mask = attn_mask(iota, iota, spec)[None, None, :, None, :]
+    return cached_attention(cfg, p["wo"], q, k, v, mask, spec.softcap), None
+
+
+def _whole(w: torch.Tensor, dim: int, n: int, partial: bool) -> torch.Tensor:
+    """w with all ``n`` entries of ``dim`` on every rank of the model axis:
+    gathered where the leaf splits there, else as it is.  ``partial``: the
+    ranks use it for different work (context parallelism), so its
+    gradient is each rank's part: the gather's backward reduce-scatters,
+    and a whole leaf's gradient is summed (``psum_grad``)."""
+    if w.shape[dim] == n:
+        return SR.psum_grad(w, SR.TP_AXIS) if partial else w
+    return SR.all_gather(w, SR.TP_AXIS, dim, partial_grad=partial)
+
+
+class _F32Product(torch.autograd.Function):
+    """``a @ w`` with its f32 sum unrounded (the card's bf16 GEMM with an
+    f32 output; elsewhere the f32 product of the same values); the
+    backward's products in a's dtype, as the plain product's are."""
+
+    @staticmethod
+    def forward(ctx, a, w):
+        ctx.save_for_backward(a, w)
+        a2 = a.reshape(-1, a.shape[-1])
+        if a.dtype == torch.float32:
+            y = a2 @ w
+        elif a.device.type == "cpu":
+            y = a2.float() @ w.float()
+        else:
+            y = torch.mm(a2, w, out_dtype=torch.float32)
+        return y.view(*a.shape[:-1], w.shape[-1])
+
+    @staticmethod
+    def backward(ctx, g):
+        a, w = ctx.saved_tensors
+        g = g.to(a.dtype)
+        return (g @ w.t(), a.reshape(-1, a.shape[-1]).t()
+                @ g.reshape(-1, g.shape[-1]))
+
+
+def row_parallel(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``a @ w`` whose contraction is split over the model axis (this
+    rank's block of each): the f32 partial sums psummed, then rounded to
+    a's dtype once."""
+    y = SR.constrain(_F32Product.apply(a, w), ("data", None, "embed_act"),
+                     partial=(SR.TP_AXIS,))
+    return y.to(a.dtype)
+
+
+def _attention_core(cfg: ModelConfig, x: torch.Tensor, wq, wk, wv, wo,
+                    spec: AttnSpec, positions: torch.Tensor,
+                    rows: Optional[Tuple[int, int]] = None,
+                    split: bool = False) -> torch.Tensor:
+    """Projections, rope, flash and the out-projection of ``x`` through
+    the given (local) weights; ``rows`` = (first, count): only those query
+    rows, against every row's k and v; ``split``: the heads are this
+    rank's of a model-axis split, the out-projection ``row_parallel``."""
+    b = x.shape[0]
+    xq, xk, xv = fan(x, 3, wq.dtype)
+    q_pos, r0 = positions, 0
+    if rows is not None:
+        r0, n = rows
+        xq, q_pos = xq[:, r0:r0 + n], positions[:, r0:r0 + n]
+    q = apply_rope(_project(xq, wq), q_pos, cfg.rope_theta)
+    q = SR.constrain(q, ("data", "q_seq", "heads", None))
+    k = apply_rope(_project(xk, wk), positions, cfg.rope_theta)
+    v = _project(xv, wv)
     # (B, S, H, hd) -> (B, H, S, hd) views; the kernel writes its output in
     # q's (B, S, H, hd) layout, so the swap back is free
     out = K.flash_attention_diff(q.transpose(1, 2), k.transpose(1, 2),
                                  v.transpose(1, 2), causal=spec.causal,
-                                 window=spec.window, softcap=spec.softcap)
-    out = out.transpose(1, 2).reshape(b, s, cfg.n_heads * q.shape[-1])
-    return out @ p["wo"].reshape(-1, p["wo"].shape[-1]), None
+                                 window=spec.window, softcap=spec.softcap,
+                                 q_offset=r0)
+    out = out.transpose(1, 2).reshape(b, q.shape[1], -1)
+    if split:
+        return row_parallel(out, wo.reshape(-1, wo.shape[-1]))
+    return out @ wo.reshape(-1, wo.shape[-1])
+
+
+def _sharded_attention(cfg: ModelConfig, p: Params, x: torch.Tensor,
+                       spec: AttnSpec, positions: torch.Tensor
+                       ) -> torch.Tensor:
+    """Self-attention (train/prefill) on a mesh of ranks; x (B, S, D) is
+    whole on every rank of the model axis, and so is the output.
+
+    The layout is the reference's constraint on q, ``("data", "q_seq",
+    "heads", None)``: its sequence split over ``"model"`` (the ``q_seq``
+    override) runs context-parallel, its heads split head-parallel, and
+    neither replicated.  Head-parallel ranks project with their own
+    blocks of wq and wo (the local heads come out contiguous, as the
+    kernel's TMA needs) and of wk, wv where the kv heads split too, else
+    with the slice of kv heads their query heads read; the output is a
+    partial sum over the ranks.  A kv grouping that no slice serves (each
+    rank's query heads reading a ragged run of kv heads) runs
+    replicated."""
+    tp = SR.TP_AXIS
+    mesh = SR.rank_mesh()
+    m, n_tp = mesh.coord(tp), mesh.size(tp)
+    b, s, _ = x.shape
+    h, hk, g = cfg.n_heads, cfg.n_kv_heads, cfg.q_per_kv
+    q_spec = SR.logical_spec(("data", "q_seq", "heads", None),
+                             (b * SR.batch_split(), s, h,
+                              cfg.resolved_head_dim))
+    if tp in SR.axis_names(q_spec[1]):               # context-parallel
+        n = s // n_tp
+        y = _attention_core(cfg, SR.psum_grad(x, tp),
+                            _whole(p["wq"], 1, h, True),
+                            _whole(p["wk"], 1, hk, True),
+                            _whole(p["wv"], 1, hk, True),
+                            _whole(p["wo"], 0, h, True), spec, positions,
+                            rows=(m * n, n))
+        return SR.constrain(y, ("data", None, "embed_act"),
+                            src=SR.PartitionSpec(SR.batch_entry(), tp, None))
+    if tp in SR.axis_names(q_spec[2]):               # head-parallel
+        hl = h // n_tp
+        wk, wv = p["wk"], p["wv"]
+        if wk.shape[1] == hk:          # kv heads whole: this rank's slice
+            if hl % g == 0:
+                lo, nk = m * hl // g, hl // g
+            elif g % hl == 0:
+                lo, nk = m * hl // g, 1
+            else:
+                lo = None
+            if lo is not None:
+                wk = SR.psum_grad(wk, tp)[:, lo:lo + nk]
+                wv = SR.psum_grad(wv, tp)[:, lo:lo + nk]
+        else:
+            lo = 0
+        if lo is not None:
+            return _attention_core(cfg, SR.psum_grad(x, tp), p["wq"], wk,
+                                   wv, p["wo"], spec, positions, split=True)
+    y = _attention_core(cfg, x, _whole(p["wq"], 1, h, False),
+                        _whole(p["wk"], 1, hk, False),
+                        _whole(p["wv"], 1, hk, False),
+                        _whole(p["wo"], 0, h, False), spec, positions)
+    return SR.constrain(y, ("data", None, "embed_act"))
 
 
 # --------------------------------------------------------------------------- #
@@ -579,10 +729,21 @@ def mlp_axes(cfg: ModelConfig) -> Params:
 def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
     """Gated MLP, ``act(x @ w_gate) * (x @ w_up) @ w_down`` with every op
     rounded to x's dtype, bit for bit the JAX package's on its CPU backend
-    (jax 0.9.0 does not fuse the chain into one f32 rounding)."""
+    (jax 0.9.0 does not fuse the chain into one f32 rounding).  On a mesh
+    of ranks whose model axis splits ``d_ff``: column-parallel, then
+    row-parallel with a psum."""
     act = gelu if cfg.mlp_activation == "gelu" else silu
+    mesh = SR.rank_mesh()
+    split = (mesh is not None and mesh.size(SR.TP_AXIS) > 1
+             and p["w_gate"].shape[1] * mesh.size(SR.TP_AXIS) == cfg.d_ff)
+    if split:
+        x = SR.psum_grad(x, SR.TP_AXIS)
     xg, xu = fan(x, 2, p["w_gate"].dtype)
-    return (act(xg @ p["w_gate"]) * (xu @ p["w_up"])) @ p["w_down"]
+    h = act(xg @ p["w_gate"]) * (xu @ p["w_up"])
+    h = SR.constrain(h, ("data", None, "mlp_act"))
+    if split:
+        return row_parallel(h, p["w_down"])
+    return SR.constrain(h @ p["w_down"], ("data", None, "embed_act"))
 
 
 # --------------------------------------------------------------------------- #
@@ -590,27 +751,69 @@ def mlp(cfg: ModelConfig, p: Params, x: torch.Tensor) -> torch.Tensor:
 # --------------------------------------------------------------------------- #
 
 
+def vocab_offset(cfg: ModelConfig, table: torch.Tensor) -> Optional[int]:
+    """The first vocab row of this rank's block of the embedding table on a
+    mesh of ranks whose model axis splits the vocab, else None."""
+    mesh = SR.rank_mesh()
+    if mesh is None or table.shape[0] == padded_vocab(cfg):
+        return None
+    return mesh.coord(SR.TP_AXIS) * table.shape[0]
+
+
 def lm_logits(cfg: ModelConfig, embed_table: torch.Tensor,
               x: torch.Tensor) -> torch.Tensor:
     """Tied LM head: logits in x's dtype, then f32; padded vocab columns
-    masked to -1e30."""
+    masked to -1e30.  With the vocab split over the model axis (a mesh of
+    ranks) this rank's columns, masked by their place in the whole
+    vocab."""
+    off = vocab_offset(cfg, embed_table)
+    if off is not None:
+        x = SR.psum_grad(x, SR.TP_AXIS)
     logits = (x @ embed_table.to(x.dtype).t()).float()
     if cfg.final_logit_softcap is not None:
         logits = (torch.tanh(logits / cfg.final_logit_softcap)
                   * cfg.final_logit_softcap)
     pv = logits.shape[-1]
-    if pv != cfg.vocab_size:
-        col = torch.arange(pv, device=logits.device)
+    if (off is None and pv != cfg.vocab_size) or \
+            (off is not None and padded_vocab(cfg) != cfg.vocab_size):
+        col = (off or 0) + torch.arange(pv, device=logits.device)
         logits = torch.where(col < cfg.vocab_size, logits, -1e30)
-    return logits
+    return SR.constrain(logits, ("data", None, "vocab_act"))
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
-                          mask: Optional[torch.Tensor] = None
+                          mask: Optional[torch.Tensor] = None,
+                          vocab_offset: Optional[int] = None
                           ) -> torch.Tensor:
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.take_along_dim(logp, labels[..., None].long(), dim=-1)[..., 0]
+    """The mean (over ``mask``) of -log softmax at the labels.  On a mesh
+    of ranks the mean is over the global batch (its sums psummed over the
+    batch axes); with ``vocab_offset`` (this rank's first column of a
+    vocab split over the model axis) the row max, the sum of exponentials
+    and the label's logit come from collectives over the model axis."""
+    if vocab_offset is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.take_along_dim(logp, labels[..., None].long(),
+                                  dim=-1)[..., 0]
+    else:
+        tp, vl = SR.TP_AXIS, logits.shape[-1]
+        top = SR.reduce_plain(logits.detach().amax(-1, keepdim=True), tp,
+                              dist.ReduceOp.MAX)
+        z = logits - top
+        lse = torch.log(SR.psum(torch.exp(z).sum(-1), tp))
+        lab = labels.long() - vocab_offset
+        mine = (lab >= 0) & (lab < vl)
+        picked = torch.take_along_dim(z, lab.clamp(0, vl - 1)[..., None],
+                                      dim=-1)[..., 0]
+        ll = SR.psum(torch.where(mine, picked, 0.0), tp) - lse
+    if SR.rank_mesh() is None:
+        if mask is None:
+            return -torch.mean(ll)
+        mask = mask.float()
+        return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    axes = SR.batch_axes()
     if mask is None:
-        return -torch.mean(ll)
+        mask = torch.ones_like(ll)
     mask = mask.float()
-    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+    num = SR.psum(torch.sum(ll * mask), axes)
+    den = SR.reduce_plain(torch.sum(mask), axes)
+    return -num / torch.clamp(den, min=1.0)

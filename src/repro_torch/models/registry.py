@@ -15,6 +15,9 @@ the ``meta`` device, as do ``abstract_params``'s.  ``param_axes`` and
 ``batch_logical_axes`` give the logical-axes trees that
 ``sharding.rules`` turns into specs (the JAX package's ``init_params``
 returns its axes beside the params; here they come from ``cfg`` alone).
+On a mesh of ranks (the dense family; ``sharding.rules.rank_mesh``)
+``init_params(mesh=)`` and ``local_params`` give this rank's blocks of the
+leaves, and ``compute_loss`` is the mean over the global batch.
 """
 from __future__ import annotations
 
@@ -27,6 +30,8 @@ from repro_torch.configs.base import INPUT_SHAPES, ModelConfig, ShapeSpec
 from repro_torch.models import encdec as E
 from repro_torch.models import layers as L
 from repro_torch.models import transformer as T
+from repro_torch.sharding import rules as SR
+from repro_torch.tree import tree_map
 
 Params = Dict[str, Any]
 
@@ -51,12 +56,33 @@ def frames_for(cfg: ModelConfig, seq_len: int) -> int:
     return max(seq_len // E.AUDIO_FRAME_RATIO, 8)
 
 
-def init_params(cfg: ModelConfig, gen: Optional[torch.Generator]) -> Params:
+def init_params(cfg: ModelConfig, gen: Optional[torch.Generator],
+                mesh=None, rules: Optional[SR.Rules] = None) -> Params:
     """One replica's params, drawn from ``gen`` on the generator's device
-    (``None``: shapes and dtypes on the ``meta`` device)."""
+    (``None``: shapes and dtypes on the ``meta`` device).  With one rank's
+    place on a mesh of ranks (``launch.mesh.make_rank_mesh``) and the
+    logical-axis ``rules`` (the defaults unless given), this rank's blocks
+    of the same values, from the same generator stream, each layer cut as
+    it is drawn."""
+    if mesh is not None and mesh.ranked:
+        rules = rules or SR.DEFAULT_RULES
+        return T.init_decoder(gen, cfg, T.param_specs(cfg, mesh, rules),
+                              mesh)
     if is_encdec(cfg):
         return E.init_encdec(gen, cfg)
     return T.init_decoder(gen, cfg)
+
+
+def local_params(cfg: ModelConfig, params: Params, mesh,
+                 rules: Optional[SR.Rules] = None, device=None) -> Params:
+    """This rank's blocks of whole ``params`` (for instance the JAX
+    package's init, carried over by ``flat_state.params_from_reference``)
+    on a mesh of ranks, copied to ``device`` (the rank's by default)."""
+    specs = T.param_specs(cfg, mesh, rules or SR.DEFAULT_RULES)
+    dev = device or mesh.device
+    return tree_map(lambda t, sp: SR.local_slice(t, sp, mesh).to(
+        dev, copy=True, memory_format=torch.contiguous_format),
+        params, specs)
 
 
 def param_axes(cfg: ModelConfig) -> Params:
@@ -145,8 +171,9 @@ def compute_loss(cfg: ModelConfig, params: Params,
     logits, aux = _logits(cfg, params, batch, remat)
     if has_prefix(cfg):
         logits = logits[:, cfg.n_prefix_tokens:]
-    ce = L.softmax_cross_entropy(logits, batch["labels"],
-                                 batch.get("loss_mask"))
+    ce = L.softmax_cross_entropy(
+        logits, batch["labels"], batch.get("loss_mask"),
+        vocab_offset=L.vocab_offset(cfg, params["embed"]["table"]))
     aux_w = cfg.moe.router_aux_weight if cfg.moe else 0.0
     return ce + aux_w * aux, {"ce": ce, "moe_aux": aux}
 

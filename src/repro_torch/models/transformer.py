@@ -25,6 +25,15 @@ tensor, as in the JAX package, or a (B,) tensor: then every row has its
 own position clock (rope, ring slot, ``k_pos`` mask) and MoE layers route
 each row as a capacity group of its own, which is what the JAX serving
 engine gets by vmapping a one-row step.
+
+On a mesh of ranks (``sharding.rules.rank_mesh``; the dense family,
+``sharding.rules.SHARDED_FAMILIES``) ``params`` are this rank's blocks of
+the leaves (``init_decoder(specs=, mesh=)`` draws them): ``forward``
+gathers each layer's leaves over the batch axes (FSDP) inside the layer
+group's ``remat_call``, so the recompute gathers again and the backward's
+reduce-scatter is the gather's pullback; the vocab-split embedding lookup
+masks the ids outside this rank's rows and psums (the JAX package's
+constraint after the embedding).
 """
 from __future__ import annotations
 
@@ -39,6 +48,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models import rglru as RG
 from repro_torch.models import ssm as S
+from repro_torch.sharding import rules as SR
 from repro_torch.tree import tree_map, tree_paths
 
 Params = Dict[str, Any]
@@ -314,24 +324,71 @@ def init_stacked(init_one, n: int) -> Optional[Params]:
     return stack
 
 
-def init_decoder(gen: Optional[torch.Generator], cfg: ModelConfig
-                 ) -> Params:
+def init_decoder(gen: Optional[torch.Generator], cfg: ModelConfig,
+                 specs: Optional[Params] = None, mesh=None) -> Params:
     """One replica's params, drawn from ``gen`` on its device (``None``:
     on the ``meta`` device); ``blocks`` drawn group by group
-    (``init_stacked``)."""
+    (``init_stacked``).  With ``specs`` (the whole tree's, see
+    ``param_specs``) and a rank's ``mesh`` each drawn layer is cut to this
+    rank's blocks before the next is drawn: the same values as the
+    unsharded init's, one layer whole at a time."""
     n_pre, n_grp, n_coda = structure(cfg)
     per = pattern(cfg)
-    p: Params = {"embed": L.init_embedding(gen, cfg)}
-    p["prelude"] = [init_layer(gen, cfg, cfg.layer_kind(i), i)
-                    for i in range(n_pre)]
+
+    def cut(tree, sp):
+        if specs is None:
+            return tree
+        return tree_map(lambda t, spec: SR.local_slice(t, spec, mesh).clone(
+            memory_format=torch.contiguous_format), tree, sp)
+
+    lsp = _layer_specs(cfg, specs) if specs is not None else None
+    p: Params = {"embed": cut(L.init_embedding(gen, cfg),
+                              specs and specs["embed"])}
+    p["prelude"] = [cut(init_layer(gen, cfg, cfg.layer_kind(i), i),
+                        lsp and lsp[i]) for i in range(n_pre)]
     p["blocks"] = init_stacked(
-        lambda: {f"p{j}": init_layer(gen, cfg, kind, n_pre + j)
-                 for j, kind in enumerate(per)}, n_grp)
+        lambda: cut({f"p{j}": init_layer(gen, cfg, kind, n_pre + j)
+                     for j, kind in enumerate(per)},
+                    lsp and _group_spec(lsp, n_pre, len(per))), n_grp)
     base = n_pre + n_grp * len(per)
-    p["coda"] = [init_layer(gen, cfg, cfg.layer_kind(base + j), base + j)
+    p["coda"] = [cut(init_layer(gen, cfg, cfg.layer_kind(base + j),
+                                base + j), lsp and lsp[base + j])
                  for j in range(n_coda)]
-    p["final_norm"] = L.init_rmsnorm(cfg, L._device(gen))
+    p["final_norm"] = cut(L.init_rmsnorm(cfg, L._device(gen)),
+                          specs and specs["final_norm"])
     return p
+
+
+_SPECS: Dict[Any, Params] = {}
+
+
+def param_specs(cfg: ModelConfig, mesh=None, rules=None) -> Params:
+    """The spec of every leaf of ``init_decoder``'s tree on ``mesh`` under
+    ``rules`` (by default the active sharding context's)."""
+    mesh = mesh or SR.active_mesh()
+    rules = rules or SR.active_rules()
+    key = (cfg, mesh.axis_names, mesh.sizes, tuple(sorted(rules.items())))
+    if key not in _SPECS:
+        _SPECS[key] = SR.tree_shardings(decoder_axes(cfg),
+                                        init_decoder(None, cfg), mesh, rules)
+    return _SPECS[key]
+
+
+def _layer_specs(cfg: ModelConfig, specs: Params) -> List[Params]:
+    """Each layer's spec tree in depth order (``_layers``' order); a
+    group's layers drop the stacked leaves' leading group axis."""
+    n_pre, n_grp, _ = structure(cfg)
+    per = pattern(cfg)
+    out = list(specs.get("prelude") or [])
+    if n_grp:
+        one = tree_map(lambda sp: SR.PartitionSpec(*sp[1:]), specs["blocks"])
+        out += [one[f"p{j}"] for _ in range(n_grp) for j in range(len(per))]
+    return out + list(specs.get("coda") or [])
+
+
+def _group_spec(lsp: List[Params], n_pre: int, per: int) -> Params:
+    """One group's ``{"p<j>": spec tree}``, from ``_layer_specs``."""
+    return {f"p{j}": lsp[n_pre + j] for j in range(per)}
 
 
 def decoder_axes(cfg: ModelConfig) -> Params:
@@ -358,10 +415,24 @@ def decoder_axes(cfg: ModelConfig) -> Params:
 
 def _embed(cfg: ModelConfig, table: torch.Tensor,
            tokens: torch.Tensor) -> torch.Tensor:
-    x = table[tokens.long()].to(L._dtype(cfg))
+    """The scaled embedding of ``tokens``; with the table's vocab split
+    over the model axis (a mesh of ranks), this rank's rows, the other ids
+    zero, summed over the ranks (the JAX package's constraint after the
+    embedding)."""
+    off = L.vocab_offset(cfg, table)
+    ids = tokens.long()
+    if off is not None:
+        ids = ids - off
+        mine = ((ids >= 0) & (ids < table.shape[0]))[..., None]
+        ids = ids.clamp(0, table.shape[0] - 1)
+    x = table[ids].to(L._dtype(cfg))
+    if off is not None:
+        x = torch.where(mine, x, 0.0)
     # the scale is rounded to the activation dtype first, as jnp.asarray
     # does; a 0-dim CPU tensor multiplies as a scalar (no host-to-card copy)
-    return x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    x = x * torch.tensor(cfg.d_model ** 0.5, dtype=x.dtype)
+    return SR.constrain(x, ("data", None, "embed_act"),
+                        partial=(SR.TP_AXIS,) if off is not None else ())
 
 
 def _group_views(tree, n_grp: int):
@@ -426,8 +497,16 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     ``params`` (a tree rebuilt from a flat row drops empty subtrees).
     ``remat`` checkpoints each group of ``blocks`` (its ``pattern(cfg)``
     layers, carrying x and the aux sum); the prelude and coda layers are
-    not checkpointed, as in the JAX package."""
+    not checkpointed, as in the JAX package.  On a mesh of ranks (the
+    module docstring) the logits are this rank's block: its batch rows and
+    vocab columns."""
+    specs = lspecs = None
+    if SR.rank_mesh() is not None:
+        specs = param_specs(cfg)
+        lspecs = _layer_specs(cfg, specs)
     table = params["embed"]["table"]
+    if specs is not None:
+        table = SR.gather_params(table, specs["embed"]["table"])
     x = _embed(cfg, table, tokens)
     prefix_len = 0
     if prefix_embeds is not None:
@@ -439,7 +518,9 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
 
     def run(layers, x, aux, round_last):
-        for i, (lp, kind) in enumerate(layers):
+        for i, (lp, kind, sp) in enumerate(layers):
+            if sp is not None:
+                lp = SR.gather_params(lp, sp)
             x, a = apply_layer(cfg, lp, kind, x, positions, prefix_len,
                                hand_on=i + 1 < len(layers) or not round_last)
             if a is not None:
@@ -452,14 +533,18 @@ def forward(cfg: ModelConfig, params: Params, tokens: torch.Tensor,
     # coda layer to the final norm
     n_pre, n_grp, _ = structure(cfg)
     per = len(pattern(cfg))
-    layers = _layers(cfg, params)
+    layers = [(lp, kind, None if lspecs is None else lspecs[i])
+              for i, (lp, kind) in enumerate(_layers(cfg, params))]
     x, aux = run(layers[:n_pre], x, aux, round_last=n_grp > 0)
     for g in range(n_grp):
         lo = n_pre + g * per
         x, aux = remat_call(remat, run, layers[lo:lo + per], x, aux, True)
     x, aux = run(layers[n_pre + n_grp * per:], x, aux, round_last=False)
 
-    x = L.rms_norm(x, params["final_norm"], cfg.norm_eps, L._dtype(cfg))
+    final = params["final_norm"]
+    if specs is not None:
+        final = SR.gather_params(final, specs["final_norm"])
+    x = L.rms_norm(x, final, cfg.norm_eps, L._dtype(cfg))
     return L.lm_logits(cfg, table, x), aux
 
 

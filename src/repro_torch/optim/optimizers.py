@@ -128,7 +128,7 @@ def adafactor(lr: float = 3e-4, decay: float = 0.8, eps: float = 1e-30,
               clip_threshold: float = 1.0) -> Optimizer:
     """Factored second moment (Shazeer & Stern 2018): matrices keep row and
     column statistics instead of a full f32 moment; vectors keep a full
-    one."""
+    one.  Its update refuses a mesh of ranks (``NotImplementedError``)."""
 
     def init(params):
         def one(p):
@@ -142,6 +142,13 @@ def adafactor(lr: float = 3e-4, decay: float = 0.8, eps: float = 1e-30,
         return {"step": _step0(params), "mu": tree_map(one, params)}
 
     def update(grads, state, params):
+        from repro_torch.sharding.rules import rank_mesh
+        if rank_mesh() is not None:
+            raise NotImplementedError(
+                "adafactor on a mesh of ranks is not ported: its factored "
+                "moments and update RMS reduce over whole leaves (item "
+                "9(b) of the roadmap); adam, sgd and sgdm_bf16 are "
+                "elementwise and run on the blocks")
         step = state["step"] + 1
         beta = 1.0 - step.to(F32) ** -decay
 

@@ -12,10 +12,28 @@ per tensor.  The rules are a plain dict (``DEFAULT_RULES``, the JAX
 package's verbatim), overridable one rule at a time.  The spec is the
 port's own tuple type; ``placements`` turns it into
 ``torch.distributed.tensor`` placements, the counterpart of
-``NamedSharding``.  ``constrain`` is the identity outside a rules context
-and on a mesh of one device; on a larger mesh it raises: no step runs
-sharded over a (data, model) mesh yet (the sharded execution item, Queue A
-item 9 of the roadmap).
+``NamedSharding``.
+
+Sharded execution (explicit SPMD): under ``use_sharding_rules`` with one
+rank's place on a mesh of ranks (``launch.mesh.make_rank_mesh``, or a
+``rank_view`` on ``meta``), each rank holds its local block of every
+leaf (``local_slice``: JAX's block order, major to minor) and the model
+code says where data moves, with autograd-aware collectives over named
+axes: ``all_gather`` (backward: a reduce-scatter, or the rank's own
+block where the cotangent is replicated), ``psum`` (backward: the
+cotangent as it comes), ``psum_grad`` (the identity; backward: a psum)
+and ``local_block`` (backward: an all-gather).  ``constrain`` brings a
+local tensor to a logical layout: it reduces a pending partial sum,
+gathers a dim the layout no longer splits and slices one it splits.  It
+is the identity outside a rules context and on a mesh of one device.
+Only the families in ``SHARDED_FAMILIES`` run sharded (the step builders,
+``launch.steps``, refuse the rest: item 9(b) of the roadmap).  The
+collectives run in pieces of at most ``_CHUNK`` elements, through host
+memory on gloo, and report their result bytes to an active cost counter
+(``launch.loopcost.collective``); on ``meta`` they only shape their
+outputs.  ``gather_params`` is FSDP's gather of a layer's leaves over the
+batch axes (``"data"``, ``"pod"``); ``"model"`` (``TP_AXIS``) stays split
+in the compute.
 
 The fleet half (``FleetSharding``, reference lines 181-237): under a fleet
 mesh (``launch.mesh.make_fleet_mesh``) every rank
@@ -96,6 +114,10 @@ class PartitionSpec(tuple):
 P = PartitionSpec
 
 
+TP_AXIS = "model"                   # the tensor-parallel axis
+SHARDED_FAMILIES = ("dense",)       # families whose step runs on a rank mesh
+
+
 @dataclasses.dataclass(frozen=True)
 class _Ctx:
     mesh: Mesh
@@ -108,7 +130,8 @@ _ACTIVE: Optional[_Ctx] = None
 @contextlib.contextmanager
 def use_sharding_rules(mesh: Mesh, overrides: Optional[Rules] = None):
     """Make ``mesh`` and the default rules (with ``overrides``) the active
-    context of ``logical_spec`` and ``constrain`` for the dynamic extent."""
+    context of ``logical_spec``, ``constrain`` and the collectives for the
+    dynamic extent."""
     global _ACTIVE
     prev, _ACTIVE = _ACTIVE, _Ctx(mesh, {**DEFAULT_RULES, **(overrides or {})})
     try:
@@ -119,6 +142,45 @@ def use_sharding_rules(mesh: Mesh, overrides: Optional[Rules] = None):
 
 def active_mesh() -> Optional[Mesh]:
     return _ACTIVE.mesh if _ACTIVE is not None else None
+
+
+def active_rules() -> Rules:
+    return _ACTIVE.rules if _ACTIVE is not None else DEFAULT_RULES
+
+
+def rank_mesh() -> Optional[Mesh]:
+    """The active mesh where it is one rank's place on a mesh of more than
+    one device (the model code then runs sharded), else None."""
+    if _ACTIVE is not None and _ACTIVE.mesh.ranked:
+        return _ACTIVE.mesh
+    return None
+
+
+def batch_axes(mesh: Optional[Mesh] = None,
+               rules: Optional[Rules] = None) -> Tuple[str, ...]:
+    """The mesh axes of more than one device that split the global batch
+    (the ``"data"`` rule's), major to minor."""
+    mesh = mesh or active_mesh()
+    rules = rules or active_rules()
+    return tuple(a for a in rules.get("data") or ()
+                 if mesh is not None and mesh.size(a) > 1)
+
+
+def batch_split(mesh: Optional[Mesh] = None) -> int:
+    """How many blocks the batch axes cut the global batch into."""
+    mesh = mesh or active_mesh()
+    return int(np.prod([mesh.size(a) for a in batch_axes(mesh)]))
+
+
+def batch_entry(mesh: Optional[Mesh] = None):
+    """The spec entry of a dim split over the batch axes."""
+    axes = batch_axes(mesh)
+    return None if not axes else axes[0] if len(axes) == 1 else axes
+
+
+def axis_names(entry) -> Tuple[str, ...]:
+    """A spec entry's mesh axes, major to minor (() for None)."""
+    return _names(entry)
 
 
 def _resolve_dim(logical: Optional[str], dim: int, mesh: Mesh, rules: Rules,
@@ -193,19 +255,315 @@ def placements(spec: PartitionSpec, mesh_dim_names: Sequence[str]) -> list:
     return out
 
 
-def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]]
-              ) -> torch.Tensor:
-    """``x`` itself outside a rules context and on a mesh of one device,
-    where every spec is a no-op.  On a larger mesh there is no sharded
-    step to constrain: it raises."""
-    if _ACTIVE is None or _ACTIVE.mesh.n_devices == 1:
-        return x
-    raise NotImplementedError(
-        f"constrain: sharded execution over a {dict(_ACTIVE.mesh.shape)} "
-        f"mesh is not ported (Queue A item 9 of the roadmap); only a mesh "
-        f"of one device runs")
+def _names(entry) -> Tuple[str, ...]:
+    """A spec entry's mesh axes, major to minor."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _split(entry, mesh: Mesh) -> int:
+    return int(np.prod([mesh.size(a) for a in _names(entry)]))
+
+
+def _block_index(entry, mesh: Mesh) -> int:
+    """This rank's block of a dim split over ``entry`` (major to minor)."""
+    i = 0
+    for a in _names(entry):
+        i = i * mesh.size(a) + mesh.coord(a)
+    return i
+
+
+def global_shape(shape: Sequence[int], spec: PartitionSpec,
+                 mesh: Mesh) -> Tuple[int, ...]:
+    """The global shape of a rank's local block ``shape`` laid out by
+    ``spec``."""
+    return tuple(n * _split(e, mesh) for n, e in
+                 zip(shape, tuple(spec) + (None,) * len(shape)))
+
+
+def local_slice(t: torch.Tensor, spec: PartitionSpec,
+                mesh: Mesh) -> torch.Tensor:
+    """This rank's block of the global tensor ``t`` laid out by ``spec``
+    on ``mesh`` (a view; JAX's block order: a dim split over several axes
+    is cut major to minor)."""
+    for d, entry in enumerate(spec):
+        n = _split(entry, mesh)
+        if n > 1:
+            size = t.shape[d] // n
+            t = t.narrow(d, _block_index(entry, mesh) * size, size)
+    return t
+
+
+def local_tree(tree, specs, mesh: Mesh):
+    """``local_slice`` of every leaf of ``tree`` by the matching spec."""
+    return tree_map(lambda t, s: local_slice(t, s, mesh), tree, specs)
+
+
+# --------------------------------------------------------------------------- #
+# collectives over named axes
+# --------------------------------------------------------------------------- #
 
 _CHUNK = 1 << 26          # elements per collective call (256 MB in f32)
+
+
+def _mesh_axes(axes) -> Tuple[str, ...]:
+    """The axes of the active rank mesh, of more than one device, among
+    ``axes`` (a name or a tuple, major to minor)."""
+    mesh = rank_mesh()
+    if mesh is None:
+        return ()
+    return tuple(a for a in _names(axes) if mesh.size(a) > 1)
+
+
+def _via(mesh: Mesh) -> torch.device:
+    """Where a collective's pieces travel: the rank's card over NCCL, host
+    memory over gloo (which all-gathers no CUDA tensor)."""
+    return mesh.device if mesh.backend == "nccl" else torch.device("cpu")
+
+
+def _reduce(x: torch.Tensor, axis: str, mesh: Mesh, op=None
+            ) -> torch.Tensor:
+    """A new tensor: the sum (or ``op``) of ``x`` over the ranks of
+    ``axis``."""
+    with LC.paused():
+        if x.device.type == "meta":
+            out = torch.empty_like(x)
+        else:
+            flat = x.detach().to(_via(mesh), copy=True).contiguous().view(-1)
+            for piece in flat.split(_CHUNK):
+                dist.all_reduce(piece, op=op or dist.ReduceOp.SUM,
+                                group=mesh.groups[axis])
+            out = flat.view(x.shape).to(x.device)
+    LC.collective("all-reduce", x.numel() * x.element_size(), out)
+    return out
+
+
+def _gather(x: torch.Tensor, axis: str, dim: int, mesh: Mesh
+            ) -> torch.Tensor:
+    """The ranks of ``axis``' blocks of x concatenated along ``dim`` in
+    rank order."""
+    n = mesh.size(axis)
+    with LC.paused():
+        shape = list(x.shape)
+        shape[dim] *= n
+        if x.device.type == "meta":
+            out = x.new_empty(shape)
+        else:
+            flat = x.detach().to(_via(mesh)).contiguous().view(-1)
+            parts = [torch.empty_like(flat) for _ in range(n)]
+            for off in range(0, flat.numel(), _CHUNK):
+                dist.all_gather([p[off:off + _CHUNK] for p in parts],
+                                flat[off:off + _CHUNK],
+                                group=mesh.groups[axis])
+            out = torch.cat([p.view(x.shape) for p in parts], dim).to(
+                x.device)
+    LC.collective("all-gather", out.numel() * out.element_size(), out)
+    return out
+
+
+def _block(x: torch.Tensor, axis: str, dim: int, mesh: Mesh
+           ) -> torch.Tensor:
+    """This rank's block of x along ``dim`` over ``axis`` (no traffic)."""
+    size = x.shape[dim] // mesh.size(axis)
+    return x.narrow(dim, mesh.coord(axis) * size, size).contiguous()
+
+
+def _reduce_scatter(x: torch.Tensor, axis: str, dim: int, mesh: Mesh
+                    ) -> torch.Tensor:
+    """The sum of x over the ranks of ``axis``, this rank's block along
+    ``dim``: ``reduce_scatter_tensor`` over NCCL; over gloo, which has no
+    reduce-scatter of CUDA tensors, an all-reduce and then the block
+    (counted as the reduce-scatter it stands for)."""
+    n = mesh.size(axis)
+    with LC.paused():
+        if x.device.type == "meta":
+            shape = list(x.shape)
+            shape[dim] //= n
+            out = x.new_empty(shape)
+        elif mesh.backend == "nccl":
+            # blocks along dim 0, each a row of (n, block numel)
+            rows = x.detach().movedim(dim, 0).contiguous()
+            out = rows.new_empty((rows.shape[0] // n,) + rows.shape[1:])
+            flat, part = rows.view(n, -1), out.view(-1)
+            for off in range(0, part.numel(), _CHUNK):
+                dist.reduce_scatter_tensor(
+                    part[off:off + _CHUNK],
+                    flat[:, off:off + _CHUNK].reshape(-1),
+                    group=mesh.groups[axis])
+            out = out.movedim(0, dim).contiguous()
+        else:
+            flat = x.detach().to(_via(mesh), copy=True).contiguous().view(-1)
+            for piece in flat.split(_CHUNK):
+                dist.all_reduce(piece, group=mesh.groups[axis])
+            out = _block(flat.view(x.shape), axis, dim, mesh).to(x.device)
+    LC.collective("reduce-scatter", out.numel() * out.element_size(), out)
+    return out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim, partial_grad, mesh):
+        ctx.axes, ctx.dim, ctx.partial, ctx.mesh = axes, dim, partial_grad, \
+            mesh
+        for a in reversed(axes):            # minor first: blocks in order
+            x = _gather(x, a, dim, mesh)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for a in ctx.axes:
+            g = (_reduce_scatter(g, a, ctx.dim, ctx.mesh) if ctx.partial
+                 else _block(g, a, ctx.dim, ctx.mesh))
+        return g, None, None, None, None
+
+
+class _Psum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        for a in axes:
+            x = _reduce(x, a, mesh)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None, None
+
+
+class _PsumGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, mesh):
+        ctx.axes, ctx.mesh = axes, mesh
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        for a in ctx.axes:
+            g = _reduce(g, a, ctx.mesh)
+        return g, None, None
+
+
+class _LocalBlock(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, axes, dim, mesh):
+        ctx.axes, ctx.dim, ctx.mesh = axes, dim, mesh
+        for a in axes:                      # major first
+            x = _block(x, a, dim, mesh)
+        return x
+
+    @staticmethod
+    def backward(ctx, g):
+        for a in reversed(ctx.axes):
+            g = _gather(g, a, ctx.dim, ctx.mesh)
+        return g, None, None, None
+
+
+def all_gather(x: torch.Tensor, axes, dim: int,
+               partial_grad: bool = True) -> torch.Tensor:
+    """x's blocks on the ranks of ``axes`` (a name or a tuple, major to
+    minor) concatenated along ``dim``.  The backward reduce-scatters the
+    cotangent, as each rank's use of the whole is a part of the gradient
+    (FSDP's gathered weight); with ``partial_grad=False`` it takes the
+    rank's block, for a cotangent every rank holds whole (a gathered
+    activation that the ranks then use alike).  The identity off a rank
+    mesh."""
+    axes = _mesh_axes(axes)
+    return (_AllGather.apply(x, axes, dim, partial_grad, rank_mesh())
+            if axes else x)
+
+
+def psum(x: torch.Tensor, axes) -> torch.Tensor:
+    """The sum of x over the ranks of ``axes``; the backward passes the
+    cotangent on (each rank's part gets the whole).  The identity off a
+    rank mesh."""
+    axes = _mesh_axes(axes)
+    return _Psum.apply(x, axes, rank_mesh()) if axes else x
+
+
+def psum_grad(x: torch.Tensor, axes) -> torch.Tensor:
+    """x; the backward sums the cotangent over the ranks of ``axes``: a
+    tensor every rank holds whole and uses for its own part of the work
+    (the input of a tensor-parallel region).  The identity off a rank
+    mesh."""
+    axes = _mesh_axes(axes)
+    return _PsumGrad.apply(x, axes, rank_mesh()) if axes else x
+
+
+def local_block(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
+    """This rank's block along ``dim`` of x (whole on every rank of
+    ``axes``); the backward all-gathers the cotangent.  The identity off a
+    rank mesh."""
+    axes = _mesh_axes(axes)
+    return _LocalBlock.apply(x, axes, dim, rank_mesh()) if axes else x
+
+
+def reduce_plain(x: torch.Tensor, axes, op=None) -> torch.Tensor:
+    """The sum (or ``op``, a ``dist.ReduceOp``) of x over the ranks of
+    ``axes``, outside autograd: a gradient's or a metric's."""
+    for a in _mesh_axes(axes):
+        x = _reduce(x, a, rank_mesh(), op)
+    return x
+
+
+def gather_params(tree, specs):
+    """FSDP's gather: each leaf of ``tree`` (this rank's blocks, laid out
+    by the matching ``specs``) gathered over every axis but ``TP_AXIS``,
+    so only the tensor-parallel split is left.  The backward
+    reduce-scatters each gradient over those axes: the sum of every
+    rank's part, this rank's block.  The identity off a rank mesh."""
+    if rank_mesh() is None:
+        return tree
+
+    def one(t, spec):
+        for d, entry in enumerate(spec):
+            names = _names(entry)
+            axes = tuple(a for a in names if a != TP_AXIS)
+            if axes and TP_AXIS in names:
+                raise NotImplementedError(
+                    f"a dim split jointly over {names} (the tensor-parallel "
+                    f"axis with another) does not run sharded")
+            if axes:
+                t = all_gather(t, axes, d)
+        return t
+
+    return tree_map(one, tree, specs)
+
+
+def constrain(x: torch.Tensor, logical_axes: Sequence[Optional[str]],
+              src: Optional[PartitionSpec] = None,
+              partial: Sequence[str] = ()) -> torch.Tensor:
+    """``x`` brought to the layout ``logical_axes`` give on the active
+    mesh (the JAX package's ``with_sharding_constraint``).
+
+    The identity outside a rules context and on a mesh of one device.  On
+    a mesh of ranks ``x`` is this rank's block laid out by ``src`` (by
+    default already the target's) and still to be summed over the axes
+    ``partial`` (a row-parallel product's partial sum): the sum is taken
+    (``psum``), then each dim that ``src`` splits and the target does not
+    is gathered and each the target splits is sliced.  Gathered and sliced
+    dims are activations the ranks go on to use alike, so the gather's
+    backward takes the rank's block and the slice's gathers.  A mesh
+    description (no rank's place on it; see ``launch.mesh.rank_view``)
+    raises ``ValueError``."""
+    if _ACTIVE is None or _ACTIVE.mesh.n_devices == 1:
+        return x
+    mesh = _ACTIVE.mesh
+    if not mesh.ranked:
+        raise ValueError(
+            f"constrain: the {dict(mesh.shape)} mesh is a description; a "
+            f"step runs on one rank's place on it (launch.mesh."
+            f"make_rank_mesh, or rank_view on meta)")
+    x = psum(x, tuple(partial))
+    if src is None:
+        return x
+    src = PartitionSpec(*(tuple(src) + (None,) * (x.dim() - len(src))))
+    target = logical_spec(logical_axes, global_shape(x.shape, src, mesh))
+    for d, (have, want) in enumerate(zip(src, target)):
+        if _names(have) != _names(want):
+            x = all_gather(x, have, d, partial_grad=False)
+            x = local_block(x, want, d)
+    return x
+
 
 
 @dataclasses.dataclass(frozen=True)

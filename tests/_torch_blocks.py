@@ -76,6 +76,7 @@ SEEDS = (5, 6, 7)
 SEQ = {"gemma2-2b": 96, "recurrentgemma-2b": 96, "paligemma-3b": 24,
        "seamless-m4t-medium": 32}
 DTYPES = ("bfloat16", "float32")
+DENSE = ("smollm-135m", "stablelm-1.6b", "gemma2-2b")  # run sharded
 
 
 class Block(NamedTuple):
@@ -938,6 +939,65 @@ def _read_decoder(pair: Pair, seed: int) -> Reading:
     logits = _head_and_loss(pair, xn, lab, blocks, scalars, pair.prefix_len)
     model = pair.forward(p, jnp.asarray(tok), pre_j)
     return Reading(blocks, scalars, {"logits": (_np(logits), _np(model))})
+
+
+def _split_products(a: torch.Tensor, w: torch.Tensor, n: int) -> dict:
+    """``a @ w`` (bf16) whole, and with its contraction cut in ``n`` rank
+    blocks as the sharded model's row-parallel products cut it: the
+    partials rounded to bf16 and summed in bf16 one rank at a time (a bf16
+    psum), or kept in f32, summed and rounded once (an f32 psum)."""
+    k = a.shape[-1] // n
+    parts = [(a[..., i * k:(i + 1) * k].float()
+              @ w[i * k:(i + 1) * k].float()) for i in range(n)]
+    bf16 = parts[0].to(a.dtype)
+    for part in parts[1:]:
+        bf16 = bf16 + part.to(a.dtype)
+    return {"whole": a @ w, "bf16 psum": bf16,
+            "f32 psum": sum(parts).to(a.dtype)}
+
+
+def read_row_parallel(pair: Pair, seed: int, n: int = 2) -> Dict[str, tuple]:
+    """The row-parallel products of a dense bf16 config (attention's
+    out-projection on the reference's core, the MLP's down projection on
+    the port's hidden from the reference's ``ln2`` output), each layer on
+    the reference's stream from ``seed``, whole and cut over ``n`` ranks
+    (``_split_products``), against the reference's block output: per
+    variant and block, the largest (share beyond one ulp, ``rel_err``)
+    over the layers."""
+    import jax.numpy as jnp
+    from repro_torch.models import layers as T_L
+    t_cfg, p = pair.t_cfg, pair.params
+    tok, _, _ = inputs(pair, seed)
+    dt = jnp.dtype(pair.dtype)
+    x = pair.embed(p["embed"]["table"], jnp.asarray(tok), None)
+    pos, _ = _positions(B, x.shape[1])
+    act = T_L.gelu if t_cfg.mlp_activation == "gelu" else T_L.silu
+    out: Dict[str, tuple] = {}
+
+    def note(block, got, want):
+        for variant, t in got.items():
+            far, err = shares(_np(t), want)[1], rel_err(_np(t), want)
+            was = out.get(f"{block} {variant}", (0.0, 0.0))
+            out[f"{block} {variant}"] = (max(was[0], far), max(was[1], err))
+
+    xn = x
+    for lp, tlp, kind, hand_on in pair.layers():
+        h = pair.norm(xn, lp["ln1"])
+        core, y = pair.attn_parts(lp["attn"], h, pos, kind=kind)[3:]
+        wo = tlp["attn"]["wo"]
+        c = _t(core)
+        note("attn:out", _split_products(
+            c.reshape(c.shape[0], c.shape[1], -1),
+            wo.reshape(-1, wo.shape[-1]), n), _np(y))
+        h2 = pair.ffn_in(lp, x, xn, pos, kind=kind)
+        f, _ = pair.ffn(lp, h2)
+        mp = tlp["mlp"]
+        xg, xu = T_L.fan(_t(h2), 2, mp["w_gate"].dtype)
+        hid = act(xg @ mp["w_gate"]) * (xu @ mp["w_up"])
+        note("ffn:mlp down", _split_products(hid, mp["w_down"], n), _np(f))
+        xn = pair.layer(lp, x, xn, pos, kind=kind, hand_on=hand_on)[0]
+        x = xn.astype(dt)
+    return out
 
 
 def _read_encdec(pair: Pair, seed: int) -> Reading:
@@ -2044,6 +2104,17 @@ def main(archs: Optional[List[str]] = None) -> None:
     torch.set_num_threads(1)
     archs = list(archs or [])
     want_bounds = "--bounds" in archs
+    if "--row-parallel" in archs:
+        import jax
+        for arch in [a for a in archs if not a.startswith("--")] or DENSE:
+            pair = Pair.of(arch, "bfloat16")
+            with jax.default_device(jax.devices("cpu")[0]), torch.no_grad():
+                rs = [read_row_parallel(pair, s) for s in SEEDS]
+            for k in rs[0]:
+                print(f"row-parallel {arch} bfloat16 {k:24s} far "
+                      f"{max(r[k][0] for r in rs):.4%} rel "
+                      f"{max(r[k][1] for r in rs):.3e}")
+        return
     archs = [a for a in archs if a != "--bounds"]
     for arch in archs or R_R.ARCH_IDS:
         for dtype in DTYPES:

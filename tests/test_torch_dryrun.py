@@ -19,7 +19,7 @@ from repro_torch.launch import analysis as T_A
 from repro_torch.launch import dryrun as T_D
 from repro_torch.launch import loopcost as LC
 from repro_torch.launch import steps as T_S
-from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.launch.mesh import NVLINK_BW, make_host_mesh
 from repro_torch.models import registry as T_R
 from repro_torch.optim import get_optimizer
 from repro_torch.sharding import rules as T_SR
@@ -43,7 +43,7 @@ ROOF_KEYS = {"arch", "shape", "mesh", "mode", "flops_per_device",
              "peak_memory_per_device", "model_flops", "t_compute",
              "t_memory", "t_collective", "bottleneck", "useful_flops_ratio",
              "optimizer", "trace_s", "mesh_devices", "attn_impl",
-             "rule_overrides", "rules", "tag", "paper_ctx"}
+             "rule_overrides", "rules", "tag", "paper_ctx", "sharded"}
 
 
 def _loop(x, w):
@@ -226,8 +226,16 @@ def test_run_one_full_width_on_meta(arch, tmp_path):
     for k in ("flops_per_device", "bytes_per_device", "t_compute",
               "t_memory", "peak_memory_per_device", "useful_flops_ratio"):
         assert math.isfinite(rec[k]) and rec[k] > 0, k
-    assert rec["t_collective"] is None
-    assert rec["bottleneck"] in ("compute", "memory")
+    # the dense family's train step runs sharded: one rank's own count,
+    # with its collectives; the others split one unsharded count evenly
+    dense = R_R.get_config(arch).family == "dense"
+    assert rec["sharded"] == dense
+    if dense:
+        assert rec["t_collective"] > 0
+        assert rec["bottleneck"] in ("compute", "memory", "collective")
+    else:
+        assert rec["t_collective"] is None
+        assert rec["bottleneck"] in ("compute", "memory")
     assert rec["model_flops"] == R_A.model_flops_estimate(
         R_R.get_config(arch), R_R.INPUT_SHAPES["train_4k"])
     # long_500k is skipped exactly where the reference skips it
@@ -242,10 +250,14 @@ def test_run_one_paper_mode(tmp_path):
                       local_steps=2, verbose=False, out_dir=tmp_path)
     assert rec["mode"] == "dystop_round" and rec["mesh"] == "multi"
     assert (tmp_path / "smollm-135m_train_4k_multi_dystop.json").exists()
-    one = T_D.run_one("smollm-135m", "train_4k", "multi", verbose=False,
+    # the round is counted unsharded and split evenly over the 512
+    # devices; one train step likewise (the host mesh's whole count, the
+    # multi mesh's train record being one rank's own sharded count)
+    one = T_D.run_one("smollm-135m", "train_4k", "host", verbose=False,
                       out_dir=tmp_path)
+    assert not rec["sharded"] and not one["sharded"]
     # two pods x two local steps of half the batch, plus the pod mix
-    assert rec["flops_per_device"] > 1.9 * one["flops_per_device"]
+    assert rec["flops_per_device"] > 1.9 * one["flops_per_device"] / 512
     assert "skipped" in T_D.run_one("smollm-135m", "decode_32k", "multi",
                                     paper_mode=True, verbose=False,
                                     out_dir=tmp_path)
@@ -298,10 +310,14 @@ def test_run_one_takes_the_reference_keywords(tmp_path):
 
 
 def test_h1_ladder_on_meta(tmp_path, capsys):
-    """The h1 ladder's three rungs count on ``meta``: smollm-135m has no
-    prefix, so "chunked" leaves flash in place and iteration 1 counts the
-    FLOPs and bytes of iteration 0; each rung prints the reference's
-    ``emit`` line, ``t_coll`` as ``n/a``."""
+    """The h1 ladder's three rungs count on ``meta``, each as one rank's
+    own sharded step: smollm-135m has no prefix, so "chunked" leaves flash
+    in place and iteration 1 counts the FLOPs and bytes of iteration 0;
+    iteration 2's ``q_seq: ("model",)`` runs the 9 heads (which do not
+    split over the 16-way model axis) context-parallel where iteration 1
+    ran them replicated, so it counts fewer FLOPs and bytes and more
+    collective bytes; each rung prints the reference's ``emit`` line with
+    a number for ``t_coll``."""
     _script("torch_perf_hillclimb").h1(verbose=False, out_dir=tmp_path)
     recs = [json.loads((tmp_path / f"smollm-135m_train_4k_single_{t}.json")
                        .read_text())
@@ -309,14 +325,83 @@ def test_h1_ladder_on_meta(tmp_path, capsys):
     assert [r["attn_impl"] for r in recs] == ["naive", "chunked", "chunked"]
     assert recs[2]["rule_overrides"] == {"q_seq": ["model"]}
     assert [r["rules"]["q_seq"] for r in recs] == [None, None, ["model"]]
-    for r in recs[1:]:
-        assert (r["flops_per_device"], r["bytes_per_device"]) == (
-            recs[0]["flops_per_device"], recs[0]["bytes_per_device"])
+    assert all(r["sharded"] for r in recs)
+    assert (recs[1]["flops_per_device"], recs[1]["bytes_per_device"]) == (
+        recs[0]["flops_per_device"], recs[0]["bytes_per_device"])
+    assert recs[2]["flops_per_device"] < recs[1]["flops_per_device"]
+    assert recs[2]["bytes_per_device"] < recs[1]["bytes_per_device"]
+    assert (recs[2]["collective_bytes_per_device"]
+            > recs[1]["collective_bytes_per_device"])
     lines = capsys.readouterr().out.splitlines()
     assert [ln.split(":")[0] for ln in lines] == [
         "== h1_iter0_baseline", "== h1_iter1_chunked",
         "== h1_iter2_chunked_cp"]
-    assert all("t_coll=n/a bottleneck=memory" in ln for ln in lines)
+    for ln, r in zip(lines, recs):
+        assert f"t_coll={r['t_collective'] * 1e3:.1f}ms" in ln
+        assert "bottleneck=memory" in ln
+
+
+@pytest.mark.parametrize("arch", T_R.DENSE_ARCH_IDS)
+def test_dense_prefill_is_counted_sharded_on_both_meshes(arch, tmp_path):
+    """Every dense arch's prefill on the single and the multi mesh is one
+    rank's own sharded count: a collective term, the vocab-split logits'
+    block on the rank (its peak far below the unsharded step's), and the
+    decode shape of the same arch still split evenly (item 9(c))."""
+    kw = dict(verbose=False, out_dir=tmp_path)
+    for mesh in ("single", "multi"):
+        rec = T_D.run_one(arch, "prefill_32k", mesh, **kw)
+        assert rec["sharded"] and rec["mode"] == "prefill"
+        assert rec["t_collective"] > 0
+        assert rec["collective_bytes_by_kind"]["all-gather"] > 0
+    host = T_D.run_one(arch, "prefill_32k", "host", **kw)
+    assert not host["sharded"]
+    assert rec["peak_memory_per_device"] < host["peak_memory_per_device"]
+    dec = T_D.run_one(arch, "decode_32k", "single", **kw)
+    assert not dec["sharded"] and dec["t_collective"] is None
+
+
+def test_collective_bytes_match_the_closed_form(tmp_path):
+    """smollm-135m ``train_4k`` on the single mesh (data 16 x model 16),
+    one rank's sharded step: its collective calls and bytes by kind equal
+    the closed form from the specs.  Per rank: batch 256 / 16 = 16 rows of
+    4096; d_model 576 split 16 ways over data (FSDP), d_ff 1536 and the
+    padded vocab 49,152 over model, the 9 heads and 3 kv heads not (the
+    attention runs replicated); 30 layers, each its own remat group; bf16
+    weights, f32 norm scales.
+
+    * all-gather (FSDP): each layer's 9 leaves whole over data, in the
+      forward and again in the backward's recompute, plus the embedding
+      table and the final norm once;
+    * reduce-scatter: each of those leaves' gradient once (its local
+      block);
+    * all-reduce: the vocab-split embedding's psum, each layer's MLP
+      down-projection psum (f32: the partial sums are summed unrounded;
+      forward only: the recompute stops at the last tensor the backward
+      saves, before it), each layer's MLP input
+      gradient (f32: the norm's held output) and the LM head's input
+      gradient (bf16), the cross-entropy's max, sum of exponentials and
+      label logit over model (f32 per token), its numerator and
+      denominator over data, and ``grad_norm``'s sum over data and over
+      model (f32 scalars)."""
+    rec = T_D.run_one("smollm-135m", "train_4k", "single", verbose=False,
+                      out_dir=tmp_path)
+    b, s, d, dl, f, v, layers = 16, 4096, 576, 36, 96, 3072, 30
+    bf, f4 = 2, 4
+    whole = (2 * d * f4                               # ln1, ln2
+             + 2 * d * 9 * 64 * bf + 2 * d * 3 * 64 * bf   # wq wo, wk wv
+             + 3 * d * f * bf)                        # the MLP
+    act = b * s * d
+    want = {
+        "all-gather": 2 * layers * whole + v * d * bf + d * f4,
+        "reduce-scatter": layers * whole // 16 + v * dl * bf + dl * f4,
+        "all-reduce": (act * bf + layers * act * f4 + layers * act * f4
+                       + act * bf + 3 * b * s * f4 + 2 * f4 + 2 * f4)}
+    assert rec["collective_bytes_by_kind"] == want
+    assert rec["collectives"] == {"all-gather": 2 * layers * 9 + 2,
+                                  "reduce-scatter": layers * 9 + 2,
+                                  "all-reduce": 1 + 2 * layers + 1 + 3 + 4}
+    assert rec["collective_bytes_per_device"] == sum(want.values())
+    assert rec["t_collective"] == sum(want.values()) / NVLINK_BW
 
 
 def test_roofline_table_skips_tagged_records(tmp_path):

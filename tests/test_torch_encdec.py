@@ -146,9 +146,9 @@ def test_self_attention_goes_through_the_flash_kernel():
     calls = []
     orig = K.flash_attention_diff
 
-    def rec(q, k, v, causal=True, window=None, softcap=None):
+    def rec(q, k, v, causal=True, window=None, softcap=None, q_offset=0):
         calls.append((causal, tuple(q.shape), tuple(k.shape)))
-        return orig(q, k, v, causal, window, softcap)
+        return orig(q, k, v, causal, window, softcap, q_offset)
 
     tok = torch.zeros((1, 12), dtype=torch.int64)
     frames = torch.from_numpy(_frames(cfg, 8)[:1])

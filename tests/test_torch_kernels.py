@@ -536,6 +536,72 @@ def _on_xpu(t):
     return torch.Tensor._make_subclass(_Xpu, t)
 
 
+@pytest.mark.parametrize("s, n, causal, window, softcap",
+                         [(96, 48, True, None, None), (100, 25, True, 30, None),
+                          (128, 32, False, None, 20.0), (64, 16, True, 1, None)],
+                         ids=["half", "window", "bidirectional", "window-1"])
+def test_flash_plain_offset_rows_match_the_full_attention(s, n, causal,
+                                                          window, softcap):
+    """A block of query rows at ``q_offset`` against the whole sequence's
+    k and v (a rank's rows under context parallelism) equals those rows of
+    the full attention, bit for bit, through the wrapper and its
+    gradient."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(s, 2, 4, s, 32, hk=2))
+    full = T_FA.flash_attention_plain(q, k, v, causal, window, softcap)
+    for r0 in range(0, s, n):
+        rows = q[:, :, r0:r0 + n]
+        got = T_FA.flash_attention(rows, k, v, causal, window, softcap,
+                                   q_offset=r0)
+        assert torch.equal(got, full[:, :, r0:r0 + n]), r0
+    g = torch.from_numpy(np.random.default_rng(1).normal(
+        size=full.shape).astype(np.float32))
+    want = torch.autograd.grad(
+        T_OPS.flash_attention_diff(*(t.requires_grad_() for t in (q, k, v)),
+                                   causal, window, softcap), (q, k, v), g)
+    dk = dv = 0
+    for r0 in range(0, s, n):
+        qs = q.detach()[:, :, r0:r0 + n].requires_grad_()
+        kk, vv = (t.detach().requires_grad_() for t in (k, v))
+        out = T_OPS.flash_attention_diff(qs, kk, vv, causal, window, softcap,
+                                         q_offset=r0)
+        dq, dkr, dvr = torch.autograd.grad(out, (qs, kk, vv),
+                                           g[:, :, r0:r0 + n])
+        torch.testing.assert_close(dq, want[0][:, :, r0:r0 + n], atol=1e-6,
+                                   rtol=0)
+        dk, dv = dk + dkr, dv + dvr
+    torch.testing.assert_close(dk, want[1], atol=1e-5, rtol=0)
+    torch.testing.assert_close(dv, want[2], atol=1e-5, rtol=0)
+
+
+@pytest.mark.cuda
+def test_cuda_flash_kernel_with_a_query_offset_matches_plain_version():
+    """The kernel on a block of query rows at an offset (context-parallel
+    attention: a rank's rows against the whole sequence's k and v) against
+    the plain version, f32 at 1e-5 and bf16 within 2 ulps."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernel has no CPU mode")
+    dev = torch.device("cuda")
+    before = T_FA.launches
+    cases = [((2, 4, 512, 64, 4), 256, 256, "bfloat16", True, None, None),
+             ((1, 8, 300, 256, 4), 100, 150, "bfloat16", True, 64, 50.0),
+             ((1, 4, 200, 64, 2), 64, 100, "float32", True, 48, None),
+             ((2, 2, 160, 128, 2), 80, 80, "float32", False, None, 30.0)]
+    for (b, h, s, d, hk), r0, n, dtype, causal, window, softcap in cases:
+        q, k, v = (torch.from_numpy(a).to(dev, getattr(torch, dtype))
+                   for a in _qkv(s + d, b, h, s, d, hk=hk))
+        rows = q[:, :, r0:r0 + n]
+        got = T_FA.flash_attention(rows, k, v, causal, window, softcap,
+                                   q_offset=r0)
+        want = T_FA.flash_attention_plain(rows, k, v, causal, window,
+                                          softcap, q_offset=r0)
+        if dtype == "float32":
+            torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        else:
+            assert _bf16_ulps(got.float().cpu(),
+                              want.float().cpu()).max() <= 2.0
+    assert T_FA.launches - before == len(cases)
+
+
 @pytest.mark.cuda
 def test_cuda_flash_kernel_matches_plain_version():
     if not torch.cuda.is_available():

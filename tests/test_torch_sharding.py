@@ -261,8 +261,28 @@ def test_constrain_and_host_mesh():
         # size-1 axes divide every dim: named, and a no-op
         assert T_SR.logical_spec(("data", "embed"), (4, 4)) == \
             T_SR.PartitionSpec("data", None)
+    # the production mesh reshards, on one rank's view of it (meta): a
+    # replicated batch dim is sliced to the rank's 16 of 256 rows, a dim
+    # the target no longer splits is gathered, a partial sum is reduced
+    from repro_torch.launch import loopcost as LC
+    view = T_MESH.rank_view(T_MESH.make_production_mesh())
+    meta = torch.empty((256, 8), device="meta")
+    with T_SR.use_sharding_rules(view), \
+            LC.CostCounter() as c:
+        y = T_SR.constrain(meta, ("data", None), src=T_SR.PartitionSpec())
+        assert y.shape == (16, 8) and y.device.type == "meta"
+        z = T_SR.constrain(y[:, :1], ("data", None),
+                           src=T_SR.PartitionSpec("data", "model"))
+        assert z.shape == (16, 16)
+        assert T_SR.constrain(y, ("data", None), partial=("model",)
+                              ).shape == (16, 8)
+    assert dict(c.collective_calls) == {"all-gather": 1, "all-reduce": 1}
+    assert dict(c.collectives) == {"all-gather": 16 * 16 * 4,
+                                   "all-reduce": 16 * 8 * 4}
+    # it raises on a mesh description, which is no rank's place (a family
+    # whose step is not sharded is refused where its step is built)
     with T_SR.use_sharding_rules(T_MESH.make_production_mesh()):
-        with pytest.raises(NotImplementedError, match="item 9"):
+        with pytest.raises(ValueError, match="rank_view"):
             T_SR.constrain(x, ("data", None))
     assert T_MESH.make_production_mesh(multi_pod=True).n_devices == 512
     if not torch.cuda.is_available():
